@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device  — the card's name and power limit (``nvidia-smi``), the CUDA
+   version PyTorch was built with, and ``nvcc --version``;
+2. build   — builds every kernel in ``src/repro_torch/manyworld/csrc``
+   with ``nvcc`` (one process per source, started together);
+3. kernel  — each kernel against its plain PyTorch version on the card at
+   the main path's shape and at edge shapes (``torch.equal``), and its
+   time over many launches (CUDA events) beside its bound, the plain
+   version's time and a library yardstick;
+4. golden  — the lane program on the card over every batch of
+   ``tests/data/torch_lane_golden.npz`` (outputs of the JAX reference),
+   bit for bit, after rebuilding the fixture's input columns with the
+   port's own generators;
+5. main    — ``run_cells(cells, workers="lanes")`` on 2048 heavy-tail
+   cells (family default 2000 jobs, 64 m2.small nodes, best-fit,
+   void/void): lanes/s, cycles, host syncs, kernel launches, peak device
+   memory, a profiled window of the cycle loop; then the same batch with
+   the plain select, whose outputs must equal the kernel run's.
+
+It then prints the kernels line, the card's name and power limit, and
+last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
+non-zero before printing any result.  It imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+MAIN_LANES = 2048
+MAIN_NODES = 64
+GOLDEN = ROOT / "tests" / "data" / "torch_lane_golden.npz"
+HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
+FP64_OPS_PER_S = 34e12           # H100 SXM FP64 outside the tensor cores
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def _run(cmd) -> str:
+    return subprocess.run(cmd, capture_output=True, text=True, check=True,
+                          timeout=60).stdout.strip()
+
+
+def phase_device(torch) -> dict:
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"]).splitlines()[0]
+    from repro_torch.manyworld import _build
+    nvcc = _run([_build._nvcc(), "--version"]).splitlines()[-1]
+    try:
+        import triton
+        triton_version = triton.__version__
+    except ImportError:
+        triton_version = None
+    info = {"phase": "device", "nvidia_smi": smi,
+            "name": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "torch_cuda": torch.version.cuda,
+            "nvcc": nvcc, "triton": triton_version,
+            "python": sys.version.split()[0]}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from repro_torch.manyworld import _build
+    t0 = time.perf_counter()
+    report = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {name: {"seconds": r["seconds"], "cached": r["cached"],
+                             "ptxas": [ln for ln in r["log"].splitlines()
+                                       if "registers" in ln or "spill" in ln]}
+                      for name, r in report.items()}})
+
+
+def _call_ms(torch, fn, iters: int) -> float:
+    """Wall time per call over ``iters`` back-to-back calls (CUDA events):
+    the rate at which the host can issue the call, device work included."""
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _device_events(prof):
+    """(name, start_us, end_us) of every device-side event (kernels,
+    copies, fills) that torch.profiler recorded, without the profiler's
+    own ``ProfilerStep#N`` spans, which it also places on the device
+    timeline and which cover whole steps."""
+    from torch.autograd import DeviceType
+    return [(ev.name, ev.time_range.start, ev.time_range.end)
+            for ev in prof.events() if ev.device_type == DeviceType.CUDA
+            and not ev.name.startswith("ProfilerStep")]
+
+
+def _device_ms(torch, fn, iters: int) -> float:
+    """Device time per call: the summed durations of the kernels (and
+    copies) that ``iters`` calls ran on the card, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(20):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(end - start for _, start, end in _device_events(prof))
+    return us / iters * 1e-3
+
+
+def _select_cases(torch, np, dev):
+    """(name, scores, mask) on the card: the main path's shape, then the
+    edges the lane engine can hit."""
+    rng = np.random.default_rng(0)
+    cases = []
+    # Main path: L=2048 lanes x N=64 nodes, best-fit-like scores (free
+    # memory, many exact ties) with about half the nodes feasible.
+    free = rng.integers(0, 8, (MAIN_LANES, MAIN_NODES)) * 512.0
+    cases.append(("main_2048x64", free, rng.random(free.shape) < 0.5))
+    cases.append(("n1", rng.standard_normal((300, 1)),
+                  rng.random((300, 1)) < 0.5))
+    cases.append(("n1000", rng.standard_normal((257, 1000)),
+                  rng.random((257, 1000)) < 0.3))
+    s = rng.standard_normal((64, 64))
+    m = rng.random((64, 64)) < 0.5
+    m[::3] = False                                   # all-masked rows
+    cases.append(("all_masked_rows", s, m))
+    ties = rng.integers(0, 2, (128, 96)).astype(np.float64)
+    cases.append(("exact_ties", ties, np.ones_like(ties, bool)))
+    z = np.where(rng.random((128, 40)) < 0.5, 0.0, -0.0)
+    cases.append(("signed_zero_ties", z, rng.random(z.shape) < 0.8))
+    inf = np.where(rng.random((128, 50)) < 0.7, np.inf, 1.0)
+    inf[:32] = np.inf
+    cases.append(("inf_scores", inf, rng.random(inf.shape) < 0.9))
+    return [(name, torch.from_numpy(np.ascontiguousarray(s)).to(dev),
+             torch.from_numpy(np.ascontiguousarray(m)).to(dev))
+            for name, s, m in cases]
+
+
+def phase_kernel(torch, np, dev) -> dict:
+    from repro_torch.manyworld import select
+    results = {}
+    cases = _select_cases(torch, np, dev)
+    for name, s, m in cases:
+        got = select.masked_argmin(s, m)
+        torch.cuda.synchronize()
+        want = select.masked_argmin_plain(s, m)
+        ok = torch.equal(got, want)
+        err = int((got.long() - want.long()).abs().max())
+        results[name] = {"shape": list(s.shape), "match": ok,
+                         "max_abs_err": err}
+        if not ok:
+            emit({"phase": "kernel", "cases": results})
+            raise SystemExit(f"masked_argmin disagrees with its plain "
+                             f"version on {name}")
+    _, s, m = cases[0]
+    L, N = s.shape
+    iters = 1000
+    calls = {
+        "kernel": lambda: select.masked_argmin(s, m),
+        "plain": lambda: select.masked_argmin_plain(s, m),
+        "library": lambda: torch.argmin(torch.where(m, s, torch.inf), dim=1),
+    }
+    device_ms = {k: _device_ms(torch, fn, iters) for k, fn in calls.items()}
+    call_ms = {k: _call_ms(torch, fn, iters) for k, fn in calls.items()}
+    bytes_moved = 9 * L * N + 4 * L
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = L * N / FP64_OPS_PER_S * 1e3
+    line = {"phase": "kernel", "cases": results, "shape": [L, N],
+            "iters": iters, "kernel_ms": device_ms["kernel"],
+            "plain_ms": device_ms["plain"],
+            "library_ms": device_ms["library"],
+            "call_ms": call_ms,
+            "library_call": "torch.argmin(torch.where(mask, scores, inf)) "
+                            "(two calls)",
+            "bytes": bytes_moved, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max(r["max_abs_err"] for r in results.values())}
+    emit(line)
+    return line
+
+
+def phase_golden(torch, np, dev) -> None:
+    from repro_torch.manyworld import lanes
+    from repro_torch.scenarios import build_scenario
+    with np.load(GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    recipes = list(zip(fx["lane_scenario"].tolist(), fx["lane_seed"].tolist(),
+                       fx["lane_n_jobs"].tolist()))
+    report = {}
+    for sched in lanes.SCHEDULERS:
+        inputs = {name: fx[f"{sched}/in/{name}"]
+                  for name in lanes.BATCH_FIELDS}
+        # The port's generators and stacker rebuild the fixture's inputs.
+        lane_dicts = []
+        for i, (scen, seed, n_jobs) in enumerate(recipes):
+            d = build_scenario(scen, seed=seed, n_jobs=n_jobs).to_lane_arrays()
+            d.update(n_nodes=int(inputs["n_nodes"][i]),
+                     alloc_cpu=float(inputs["alloc_cpu"][i]),
+                     alloc_mem=float(inputs["alloc_mem"][i]),
+                     weights=tuple(inputs["weights"][i]))
+            lane_dicts.append(d)
+        rebuilt = lanes.stack_lanes(lane_dicts, sched,
+                                    p_pad=inputs["arrival_t"].shape[1],
+                                    device=dev)
+        for name, want in inputs.items():
+            got = getattr(rebuilt, name).cpu().numpy()
+            if got.dtype != want.dtype or not np.array_equal(got, want):
+                raise SystemExit(f"golden {sched}: rebuilt input {name} "
+                                 "differs from the fixture")
+        lanes.host_syncs = 0
+        t0 = time.perf_counter()
+        out = lanes.run_lane_batch(rebuilt, device=dev)
+        wall = time.perf_counter() - t0
+        bad = [key for key, val in out.items()
+               if val.dtype != fx[f"{sched}/out/{key}"].dtype
+               or not np.array_equal(val, fx[f"{sched}/out/{key}"])]
+        if set(out) != {k.split("/", 2)[2] for k in fx
+                        if k.startswith(f"{sched}/out/")}:
+            bad.append("keys")
+        report[sched] = {"lanes": int(inputs["valid"].shape[0]),
+                         "n_cycles": int(out["n_cycles"]),
+                         "host_syncs": lanes.host_syncs, "wall_s": wall,
+                         "equal": not bad}
+        if bad:
+            emit({"phase": "golden", "batches": report})
+            raise SystemExit(f"golden {sched}: outputs differ: {bad}")
+    emit({"phase": "golden", "batches": report})
+
+
+def _profile_window(torch, lanes, batch, dev, start: int, steps: int):
+    """Run ``batch`` with the kernel select while torch.profiler records
+    ``steps`` inner loop steps after the first ``start`` (one step per
+    host sync).  Returns the outputs and the window's numbers, or
+    ``None`` for them when the run had fewer steps."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    warmup = 5
+    marks = {}
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=start, warmup=warmup, active=steps,
+                                     repeat=1))
+    counted_any = lanes._any
+    seen = [0]
+
+    def stepping_any(t):
+        res = counted_any(t)
+        seen[0] += 1
+        if seen[0] == start:
+            marks["smi"] = _run(["nvidia-smi", "--query-gpu=clocks.sm,"
+                                 "power.draw,power.limit,temperature.gpu",
+                                 "--format=csv,noheader"])
+        elif seen[0] == start + warmup:
+            marks["t0"] = time.perf_counter()
+        elif seen[0] == start + warmup + steps:
+            marks["t1"] = time.perf_counter()
+        prof.step()
+        return res
+
+    lanes._any = stepping_any
+    try:
+        with prof:
+            out = lanes.run_lane_batch(batch, device=dev)
+    finally:
+        lanes._any = counted_any
+    if "t1" not in marks:
+        return out, None
+    events = sorted(_device_events(prof), key=lambda e: e[1])
+    device_us = sum(end - start for _, start, end in events)
+    busy_us, reach = 0.0, float("-inf")      # union of the intervals
+    by_name = {}
+    for name, start_us, end_us in events:
+        busy_us += max(0.0, end_us - max(start_us, reach))
+        reach = max(reach, end_us)
+        tot = by_name.setdefault(name, [0, 0.0])
+        tot[0] += 1
+        tot[1] += end_us - start_us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    select_us = sum(v[1] for k, v in by_name.items() if "masked_argmin" in k)
+    window_s = marks["t1"] - marks["t0"]
+    return out, {"steps": steps, "after_steps": start,
+                 "nvidia_smi_clocks_power": marks.get("smi"),
+                 "window_s": window_s, "ms_per_step": window_s / steps * 1e3,
+                 "device_busy_share": busy_us * 1e-6 / window_s,
+                 "device_ms_per_step": device_us * 1e-3 / steps,
+                 "device_busy_ms_per_step": busy_us * 1e-3 / steps,
+                 "select_kernel_ms_per_step": select_us * 1e-3 / steps,
+                 "top_device_events": [
+                     {"name": k[:90], "count": v[0],
+                      "ms_per_step": v[1] * 1e-3 / steps} for k, v in top],
+                 "device_events_per_step": len(events) / steps}
+
+
+def phase_main(torch, np, dev) -> dict:
+    from repro_torch.manyworld import lanes, select
+    from repro_torch.search.runner import CellSpec, _get_trace, run_cells
+    cells = [CellSpec(scenario="heavy-tail", scheduler="best-fit",
+                      autoscaler="void", rescheduler="void", seed=seed,
+                      engine="array", initial_workers=MAIN_NODES)
+             for seed in range(MAIN_LANES)]
+    t0 = time.perf_counter()
+    traces = [_get_trace(c.scenario, c.seed, c.n_jobs) for c in cells]
+    setup_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    select.launches = 0
+    lanes.host_syncs = 0
+    t0 = time.perf_counter()
+    rows = run_cells(cells, workers="lanes", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, syncs = select.launches, lanes.host_syncs
+    peak = torch.cuda.max_memory_allocated()
+    if launches == 0:
+        raise SystemExit("main path ran without launching masked_argmin")
+    bad = [r["label"] for r in rows
+           if not (isinstance(r["cost"], float) and np.isfinite(r["cost"])
+                   and r["n_jobs"] == 2000 and r["max_nodes"] == MAIN_NODES
+                   and 0.0 <= r["avg_ram_ratio"] <= 1.0)]
+    if len(rows) != MAIN_LANES or bad:
+        raise SystemExit(f"main path rows malformed: {bad[:5]}")
+
+    # The same batch again: kernel select (profiled window), then the
+    # plain select on the card; every lane output must agree.
+    lane_dicts = []
+    for tr in traces:
+        d = tr.to_lane_arrays()
+        d.update(n_nodes=MAIN_NODES, alloc_cpu=940.0, alloc_mem=3584.0)
+        lane_dicts.append(d)
+    batch = lanes.stack_lanes(lane_dicts, "best-fit", device=dev)
+    t0 = time.perf_counter()
+    out_k, window = _profile_window(torch, lanes, batch, dev,
+                                    start=3000, steps=300)
+    kernel_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_p = lanes.run_lane_batch(batch, device=dev,
+                                 select=select.masked_argmin_plain)
+    plain_wall = time.perf_counter() - t0
+    differ = [key for key in out_k if not np.array_equal(out_k[key],
+                                                         out_p[key])]
+    if differ:
+        raise SystemExit(f"kernel and plain select runs differ: {differ}")
+    if [r["completed"] for r in rows] != out_k["completed"].tolist():
+        raise SystemExit("rows disagree with the lane outputs")
+    line = {"phase": "main", "lanes": MAIN_LANES, "p_pad": batch.p_pad,
+            "n_pad": batch.n_pad, "trace_setup_s": setup_s,
+            "wall_s": wall, "lanes_per_s": MAIN_LANES / wall,
+            "n_cycles": int(out_k["n_cycles"]), "host_syncs": syncs,
+            "select_launches": launches, "peak_device_bytes": peak,
+            "completed_lanes": int(out_k["completed"].sum()),
+            "profiled_kernel_select_run_wall_s": kernel_wall,
+            "plain_select_run_wall_s": plain_wall,
+            "kernel_vs_plain_outputs_equal": True,
+            "profile_window": window}
+    emit(line)
+    return line
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    import numpy as np
+    dev = torch.device("cuda")
+    info = phase_device(torch)
+    phase_build()
+    k = phase_kernel(torch, np, dev)
+    phase_golden(torch, np, dev)
+    main_line = phase_main(torch, np, dev)
+    emit({"kernels": [{
+        "name": "masked_argmin", "route": "cuda",
+        "source": "src/repro_torch/manyworld/csrc/masked_argmin.cu",
+        "replaces": "src/repro/manyworld/select.py:65",
+        "launches": main_line["select_launches"],
+        "match": True, "max_abs_err": k["max_abs_err"],
+        "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
+        "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
+        "bound_ms": k["bound_ms"], "bound_us": k["bound_ms"] * 1e3,
+        "bound_by": k["bound_by"]}]})
+    print(info["nvidia_smi"], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -9,3 +9,9 @@ if _SRC not in sys.path:
 # NOTE: do NOT set --xla_force_host_platform_device_count here — smoke tests
 # and benches must see the real single-device CPU; only launch/dryrun.py
 # forces 512 placeholder devices (see the system design brief).
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips itself where none is "
+        "present (run on the card with `-m gpu`)")
