@@ -7,11 +7,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 
 1. device  — the card's name and power limit (``nvidia-smi``), the CUDA
    version PyTorch was built with, and ``nvcc --version``;
-2. build   — builds every kernel in ``src/repro_torch/manyworld/csrc``
-   with ``nvcc`` (one process per source, started together);
-3. kernel  — each kernel against its plain PyTorch version on the card at
-   the main path's shape and at edge shapes (``torch.equal``), and its
-   time over many launches (CUDA events) beside its bound, the plain
+2. build   — builds every kernel of the port (every ``csrc/*.cu`` under
+   ``src/repro_torch``) with ``nvcc``, one process per source, started
+   together;
+3. kernel  — the masked argmin against its plain PyTorch version on the
+   card at the lane path's shape and at edge shapes (``torch.equal``),
+   and its device time over many launches beside its bound, the plain
    version's time and a library yardstick;
 4. golden  — the lane program on the card over every batch of
    ``tests/data/torch_lane_golden.npz`` (outputs of the JAX reference),
@@ -21,7 +22,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    cells (family default 2000 jobs, 64 m2.small nodes, best-fit,
    void/void): lanes/s, cycles, host syncs, kernel launches, peak device
    memory, a profiled window of the cycle loop; then the same batch with
-   the plain select, whose outputs must equal the kernel run's.
+   the plain select, whose outputs must equal the kernel run's;
+6. mlstm   — the chunkwise-mLSTM kernel against its plain version
+   (``allclose``: float32 ``atol 2e-4, rtol 2e-3``, bfloat16 ``5e-2``) at
+   the forecaster's shape over the golden dataset's 8668 windows, the
+   JAX kernel test's shapes in both dtypes, T = L, dv not a multiple of
+   32, a given initial state and the returned final state; its device
+   time at the forecaster's shape beside its bound and the plain
+   version's time;
+7. forecast golden — ``load_forecaster`` on the fixture
+   ``tests/data/torch_forecaster_golden`` (a forecaster trained and
+   saved by the JAX package, and its outputs): the dataset rebuilt with
+   the port's generators must hash to the fixture's digest, and
+   ``apply_forecast`` on its 8668 windows, the val log-MSE and the
+   per-bin ``(rate, conf)`` of one flash-crowd trace must match;
+8. forecast main — batched ``apply_forecast`` over the 8668 windows at
+   full width (cold and warm, windows/s), mlstm kernel launches, peak
+   device memory, ``LearnedForecaster.predict`` latency over a whole
+   flash-crowd trace's bins, and the val log-MSE of the mLSTM, EWMA and
+   AR(1) forecasters.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -29,6 +48,7 @@ non-zero before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import subprocess
 import sys
@@ -41,8 +61,19 @@ sys.path.insert(0, str(ROOT / "src"))
 MAIN_LANES = 2048
 MAIN_NODES = 64
 GOLDEN = ROOT / "tests" / "data" / "torch_lane_golden.npz"
+FORECASTER = ROOT / "tests" / "data" / "torch_forecaster_golden"
+FORECAST_FAMILIES = ("diurnal", "flash-crowd", "heavy-tail", "mix-ramp",
+                     "scale-stress", "multi-tenant")
+FORECAST_SEEDS = 48
+FLASH_SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12           # H100 SXM FP64 outside the tensor cores
+FP32_OPS_PER_S = 67e12           # H100 SXM FP32 outside the tensor cores
+# mlstm kernel vs plain: the JAX kernel test's tolerances.
+MLSTM_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
+             "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+# Forecaster outputs (float32 log1p rates) vs the JAX fixture.
+FORECAST_TOL = dict(atol=2e-5, rtol=2e-5)
 
 
 def emit(obj) -> None:
@@ -57,7 +88,7 @@ def _run(cmd) -> str:
 def phase_device(torch) -> dict:
     smi = _run(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"]).splitlines()[0]
-    from repro_torch.manyworld import _build
+    from repro_torch import _build
     nvcc = _run([_build._nvcc(), "--version"]).splitlines()[-1]
     try:
         import triton
@@ -75,7 +106,7 @@ def phase_device(torch) -> dict:
 
 
 def phase_build() -> None:
-    from repro_torch.manyworld import _build
+    from repro_torch import _build
     t0 = time.perf_counter()
     report = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -376,6 +407,295 @@ def phase_main(torch, np, dev) -> dict:
     return line
 
 
+# (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
+# the golden dataset's batch (the main path's call; first), the JAX kernel
+# test's shapes in both dtypes, T = L, dv not a multiple of the kernel's
+# 32-column slice, a given initial state, and the kernel's limits.
+MLSTM_CASES = (
+    (8668, 2, 16, 32, 32, 64, "float32", False),
+    (1, 1, 128, 64, 64, 64, "float32", False),
+    (1, 1, 128, 64, 64, 64, "bfloat16", False),
+    (2, 2, 128, 32, 32, 32, "float32", False),
+    (2, 2, 128, 32, 32, 32, "bfloat16", False),
+    (4, 2, 64, 32, 32, 64, "float32", False),
+    (2, 2, 64, 32, 48, 16, "float32", False),
+    (3, 1, 32, 24, 20, 16, "float32", True),
+    (1, 2, 128, 128, 64, 64, "float32", True),
+)
+
+
+def _mlstm_inputs(torch, np, case, dev):
+    B, H, T, dk, dv, _, dtype, with_state = case
+    rng = np.random.default_rng(B * 1000 + T + dk + dv)
+    arrays = [rng.standard_normal((B, H, T, dk)),
+              rng.standard_normal((B, H, T, dk)) / np.sqrt(dk),
+              rng.standard_normal((B, H, T, dv)),
+              rng.standard_normal((B, H, T)),
+              rng.standard_normal((B, H, T)) + 2.0]
+    inputs = [torch.tensor(a, dtype=getattr(torch, dtype), device=dev)
+              for a in arrays]
+    state = None
+    if with_state:
+        state = tuple(torch.tensor(a, dtype=torch.float32, device=dev)
+                      for a in (rng.standard_normal((B, H, dk, dv)),
+                                np.abs(rng.standard_normal((B, H, dk))),
+                                rng.standard_normal((B, H))))
+    return inputs, state
+
+
+def _mlstm_work(B, H, T, dk, dv, L, elem_bytes):
+    """(bytes, float operations) of a cell call with no state in or out,
+    as the model path calls it: q, k, v and the gates read once and h
+    written once; the products q.k and (S o qk).v over the pairs j <= i
+    of each chunk, and q.C and the C update only between chunks (C is
+    zero before the first)."""
+    nbytes = B * H * T * (2 * dk + 2 * dv + 2) * elem_bytes
+    n_chunks = T // L
+    pairs = L * (L + 1) // 2
+    ops = B * H * n_chunks * 2 * pairs * (dk + dv)
+    ops += B * H * 2 * L * dk * dv * 2 * (n_chunks - 1)
+    return nbytes, ops
+
+
+def phase_mlstm(torch, np, dev) -> dict:
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    results = {}
+    for case in MLSTM_CASES:
+        B, H, T, dk, dv, chunk, dtype, with_state = case
+        name = f"{B}x{H}x{T}x{dk}x{dv}/L{min(chunk, T)}/{dtype}" + (
+            "/state" if with_state else "")
+        inputs, state = _mlstm_inputs(torch, np, case, dev)
+        h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk)
+        torch.cuda.synchronize()
+        want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
+                                                     chunk=chunk)
+        tol = MLSTM_TOL[dtype]
+        pairs = [(h.float(), want_h.float())] + list(zip(s, want_s))
+        ok = h.dtype == want_h.dtype and all(
+            torch.allclose(a, b, **tol) for a, b in pairs)
+        results[name] = {
+            "dtype": dtype, "state_in": with_state, "match": ok,
+            "max_abs_err_h": float((pairs[0][0] - pairs[0][1]).abs().max()),
+            "max_abs_err_state": max(float((a - b).abs().max())
+                                     for a, b in pairs[1:])}
+        if not ok:
+            emit({"phase": "mlstm", "cases": results})
+            raise SystemExit(f"mlstm_chunkwise disagrees with its plain "
+                             f"version on {name}")
+    case = MLSTM_CASES[0]
+    B, H, T, dk, dv, chunk = case[:6]
+    inputs, _ = _mlstm_inputs(torch, np, case, dev)
+    calls = {
+        "kernel": lambda: mlstm.mlstm_chunkwise(*inputs, chunk=chunk,
+                                                return_state=False),
+        "plain": lambda: mlstm.mlstm_chunkwise_plain(*inputs, chunk=chunk,
+                                                     return_state=False),
+    }
+    iters = 200
+    device_ms = {k: _device_ms(torch, fn, iters) for k, fn in calls.items()}
+    call_ms = {k: _call_ms(torch, fn, iters) for k, fn in calls.items()}
+    nbytes, ops = _mlstm_work(B, H, T, dk, dv, min(chunk, T), 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    f32 = [r for r in results.values() if r["dtype"] == "float32"]
+    line = {"phase": "mlstm", "cases": results, "tolerance": MLSTM_TOL,
+            "shape": [B, H, T, dk, dv], "chunk": min(chunk, T),
+            "iters": iters, "kernel_ms": device_ms["kernel"],
+            "plain_ms": device_ms["plain"], "library_ms": None,
+            "library_call": "no single PyTorch call computes this function",
+            "call_ms": call_ms, "bytes": nbytes, "flops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max(max(r["max_abs_err_h"], r["max_abs_err_state"])
+                               for r in f32),
+            "max_abs_err_bf16": max(r["max_abs_err_h"] for r in
+                                    results.values()
+                                    if r["dtype"] == "bfloat16")}
+    emit(line)
+    return line
+
+
+def _dataset_digest(np, data) -> str:
+    """sha256 over the dataset's four arrays, as the fixture records it."""
+    h = hashlib.sha256()
+    for key in ("X_train", "y_train", "X_val", "y_val"):
+        h.update(np.ascontiguousarray(data[key], np.float64).tobytes())
+    return h.hexdigest()
+
+
+def _windows(np, data):
+    X = np.concatenate([data["X_train"], data["X_val"]])
+    return np.log1p(X.astype(np.float32))
+
+
+def _val_log_mse(np, outputs, data) -> float:
+    n_train = data["X_train"].shape[0]
+    y = np.log1p(data["y_val"].astype(np.float32))
+    return float(np.mean((outputs[n_train:] - y) ** 2))
+
+
+def _flash_rates(window):
+    from repro_torch.forecast import features
+    from repro_torch.scenarios import build_scenario
+    trace = build_scenario("flash-crowd", seed=FLASH_SEED)
+    return features.bin_rates(trace.arrival_time, window.bin_s)
+
+
+def phase_forecast_golden(torch, np, dev):
+    from repro_torch.forecast import features, model
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    with np.load(FORECASTER / "expected.npz", allow_pickle=False) as z:
+        want = {key: z[key] for key in z.files}
+    t0 = time.perf_counter()
+    data = features.make_dataset(FORECAST_FAMILIES, range(FORECAST_SEEDS),
+                                 features.WindowConfig())
+    dataset_s = time.perf_counter() - t0
+    if _dataset_digest(np, data) != str(want["digest"]):
+        raise SystemExit("forecast golden: the port's dataset differs from "
+                         "the fixture's (digest)")
+    fc = model.load_forecaster(str(FORECASTER / "checkpoint"))
+    if fc.device.type != dev.type:
+        raise SystemExit(f"load_forecaster put the model on {fc.device}")
+    before = mlstm.launches
+    with torch.inference_mode():
+        out = model.apply_forecast(
+            fc.params, torch.from_numpy(_windows(np, data)).to(dev),
+            fc.arch).cpu().numpy()
+    launched = mlstm.launches - before
+    mse = _val_log_mse(np, out, data)
+    rates = _flash_rates(fc.window)
+    seq = []
+    for r in rates:
+        fc.observe_bin(r)
+        seq.append(fc.predict())
+    seq = np.asarray(seq, np.float64)
+    checks = {
+        "windows": int(out.shape[0]),
+        "outputs_within_tol": bool(np.allclose(out, want["outputs"],
+                                               **FORECAST_TOL)),
+        "outputs_max_abs_err": float(np.abs(out - want["outputs"]).max()),
+        "val_log_mse": mse, "val_log_mse_jax": float(want["val_log_mse"]),
+        "val_log_mse_within_1e-4": abs(mse - float(want["val_log_mse"]))
+        < 1e-4,
+        "flash_bins": int(rates.size),
+        "flash_rates_equal": bool(np.array_equal(rates,
+                                                 want["flash_rates"])),
+        "per_bin_within_tol": bool(
+            seq.shape == want["per_bin"].shape
+            and np.allclose(seq, want["per_bin"], rtol=1e-4, atol=1e-6)),
+        "per_bin_max_abs_err": float(np.abs(seq - want["per_bin"]).max()),
+        "mlstm_launches": launched}
+    emit({"phase": "forecast_golden", "dataset_s": dataset_s,
+          "digest_equal": True, **checks})
+    bad = [key for key in ("outputs_within_tol", "val_log_mse_within_1e-4",
+                           "flash_rates_equal", "per_bin_within_tol")
+           if not checks[key]]
+    if launched != 1:
+        bad.append("mlstm_launches")
+    if bad:
+        raise SystemExit(f"forecast golden: checks failed: {bad}")
+    return data
+
+
+def _ewma_log_mse(np, X, y) -> float:
+    """The online EWMA scored as ``scripts/forecast.py`` scores it: each
+    example's history through a fresh forecaster, one prediction."""
+    from repro_torch.forecast import EwmaForecaster
+    errs = []
+    for hist, target in zip(X, y):
+        f = EwmaForecaster()
+        for r in hist:
+            f.observe_bin(float(r))
+        pred, _ = f.predict()
+        errs.append((np.log1p(pred) - np.log1p(float(target))) ** 2)
+    return float(np.mean(errs))
+
+
+def phase_forecast_main(torch, np, dev, data) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.forecast import Ar1Baseline, model
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    fc = model.load_forecaster(str(FORECASTER / "checkpoint"))
+    X = torch.from_numpy(_windows(np, data))
+    n = X.shape[0]
+
+    def forecast():
+        with torch.inference_mode():
+            y = model.apply_forecast(fc.params, X.to(dev), fc.arch)
+        torch.cuda.synchronize()
+        return y
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mlstm.launches = 0
+    t0 = time.perf_counter()
+    out = forecast()
+    cold_s = time.perf_counter() - t0
+    warm = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        forecast()
+        warm.append(time.perf_counter() - t0)
+    batched_launches = mlstm.launches
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        forecast()
+    events = _device_events(prof)
+    by_name = {}
+    for name, start_us, end_us in events:
+        by_name[name] = by_name.get(name, 0.0) + (end_us - start_us) * 1e-3
+    device_ms = sum(by_name.values())
+    mlstm_ms = sum(v for k, v in by_name.items() if "mlstm" in k)
+
+    online = model.LearnedForecaster(fc.params, fc.arch, fc.window)
+    latency = []
+    for r in _flash_rates(fc.window):
+        online.observe_bin(r)
+        t0 = time.perf_counter()
+        online.predict()
+        latency.append(time.perf_counter() - t0)
+    ran = np.asarray(latency[fc.window.history_bins - 1:]) * 1e3
+    launches = mlstm.launches
+    if launches == 0 or len(ran) == 0:
+        raise SystemExit("forecast main path ran without launching "
+                         "mlstm_chunkwise")
+    out = out.cpu().numpy()
+    if out.shape != (n,) or not np.isfinite(out).all():
+        raise SystemExit("forecast main path outputs malformed")
+    ar1 = Ar1Baseline.fit(data["X_train"], data["y_train"])
+    ar1_mse = float(np.mean(
+        (np.log1p(np.maximum(ar1.predict_batch(data["X_val"]), 0.0))
+         - np.log1p(data["y_val"])) ** 2))
+    warm_s = float(np.median(warm))
+    line = {"phase": "forecast_main", "windows": n,
+            "d_model": fc.arch.d_model, "heads": fc.arch.num_heads,
+            "history_bins": fc.window.history_bins,
+            "cold_s": cold_s, "warm_s_median": warm_s,
+            "warm_s_min": min(warm), "warm_s_max": max(warm),
+            "windows_per_s_warm": n / warm_s, "windows_per_s_cold": n / cold_s,
+            "batched_calls": 1 + len(warm),
+            "batched_mlstm_launches": batched_launches,
+            "mlstm_launches": launches, "peak_device_bytes": peak,
+            "profiled_call": {
+                "device_ms": device_ms, "mlstm_kernel_ms": mlstm_ms,
+                "device_events": len(events),
+                "top_device_events": [
+                    {"name": k[:90], "ms": v} for k, v in
+                    sorted(by_name.items(), key=lambda kv: -kv[1])[:8]]},
+            "predict_bins": len(latency), "predict_model_calls": len(ran),
+            "predict_ms_median": float(np.median(ran)),
+            "predict_ms_mean": float(ran.mean()),
+            "predict_ms_p99": float(np.percentile(ran, 99)),
+            "predict_ms_max": float(ran.max()),
+            "val_log_mse": {"mlstm": _val_log_mse(np, out, data),
+                            "ewma": _ewma_log_mse(np, data["X_val"],
+                                                  data["y_val"]),
+                            "ar1": ar1_mse}}
+    emit(line)
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -388,6 +708,9 @@ def main() -> int:
     k = phase_kernel(torch, np, dev)
     phase_golden(torch, np, dev)
     main_line = phase_main(torch, np, dev)
+    m = phase_mlstm(torch, np, dev)
+    data = phase_forecast_golden(torch, np, dev)
+    forecast_line = phase_forecast_main(torch, np, dev, data)
     emit({"kernels": [{
         "name": "masked_argmin", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/masked_argmin.cu",
@@ -397,7 +720,14 @@ def main() -> int:
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
         "bound_ms": k["bound_ms"], "bound_us": k["bound_ms"] * 1e3,
-        "bound_by": k["bound_by"]}]})
+        "bound_by": k["bound_by"]}, {
+        "name": "mlstm_chunkwise", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
+        "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
+        "launches": forecast_line["mlstm_launches"],
+        "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
+        "plain_ms": m["plain_ms"], "library_ms": None,
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

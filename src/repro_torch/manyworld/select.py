@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from repro_torch.manyworld import _build
+from repro_torch import _build
 
 launches = 0
 

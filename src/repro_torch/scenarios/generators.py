@@ -1,6 +1,7 @@
-"""The four scenario families the lane engine runs, as seeded samplers.
+"""The port's scenario families, as seeded samplers.
 
-Copies of ``HeavyTail``, ``Diurnal``, ``FlashCrowd`` and ``MixRamp`` from
+Copies of ``HeavyTail``, ``Diurnal``, ``FlashCrowd``, ``MixRamp``,
+``AutoscalerStress`` and ``MultiTenant`` from
 ``repro/scenarios/generators.py``.  Each ``cfg.build(seed)`` makes the
 same ``np.random.default_rng(seed)`` draws in the same order as the
 reference, so the traces are bit-identical to it.
@@ -12,7 +13,7 @@ sum of unit-mean exponential draws; the inversion is one ``np.interp``.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -187,3 +188,68 @@ class MixRamp:
         tid = np.where(is_service, tid_service, tid).astype(np.int32)
         return TraceStore(BATCH_TEMPLATES + SERVICE_TEMPLATES, tid, times,
                           name=self.name)
+
+
+@dataclasses.dataclass
+class AutoscalerStress:
+    """Rate staircase low→high then cliff back down, repeated: every climb
+    forces scale-out under a growing backlog, every cliff leaves idle
+    autoscaled nodes for scale-in to reclaim."""
+
+    n_jobs: int = 2_000
+    low_rate_per_s: float = 0.2
+    high_rate_per_s: float = 4.0
+    n_steps: int = 4                 # staircase levels per climb
+    epoch_s: float = 300.0           # dwell per level
+    batch_only: bool = True          # batch-heavy → nodes fully drain
+    name: str = "scale-stress"
+
+    def build(self, seed: int = 0) -> TraceStore:
+        rng = np.random.default_rng(seed)
+        targets = _unit_targets(rng, self.n_jobs)
+        step_rates = np.linspace(self.low_rate_per_s, self.high_rate_per_s,
+                                 self.n_steps)
+        cycle_mass = step_rates.sum() * self.epoch_s
+        n_cycles = int(np.ceil(targets[-1] / cycle_mass)) + 1
+        rates = np.tile(step_rates, n_cycles)
+        dwell = np.full(rates.size, self.epoch_s)
+        lam_cum = np.cumsum(rates * dwell)
+        times = _invert_piecewise(targets, np.cumsum(dwell), lam_cum)
+        if self.batch_only:
+            templates: List[JobType] = list(BATCH_TEMPLATES)
+            weights = None
+        else:
+            templates, weights = mix_templates("mixed")
+        tid = _pick_templates(rng, len(templates), weights, self.n_jobs)
+        return TraceStore(templates, tid, times, name=self.name)
+
+
+@dataclasses.dataclass
+class MultiTenant:
+    """Independent tenant streams merged into one interleaved trace.
+
+    Tenant streams are seeded from ``np.random.SeedSequence(seed).spawn``,
+    so the composition is a pure function of one seed.  ``n_jobs`` sizes
+    the default diurnal/flash-crowd/heavy-tail trio (total jobs, split
+    35/35/30); explicit ``tenants`` carry their own sizes, so combining
+    the two is rejected."""
+
+    tenants: Tuple = ()              # scenario configs; () -> default trio
+    n_jobs: Optional[int] = None     # total across the default trio
+    name: str = "multi-tenant"
+
+    def build(self, seed: int = 0) -> TraceStore:
+        if self.tenants:
+            if self.n_jobs is not None:
+                raise ValueError("n_jobs sizes the default tenant trio; "
+                                 "size explicit tenant configs directly")
+            tenants = self.tenants
+        else:
+            total = self.n_jobs if self.n_jobs is not None else 2_000
+            n1 = int(round(total * 0.35))
+            n2 = int(round(total * 0.35))
+            tenants = (Diurnal(n_jobs=n1), FlashCrowd(n_jobs=n2),
+                       HeavyTail(n_jobs=total - n1 - n2))
+        streams = np.random.SeedSequence(seed).spawn(len(tenants))
+        parts = [cfg.build(stream) for cfg, stream in zip(tenants, streams)]
+        return TraceStore.merge(parts, name=self.name)

@@ -1,10 +1,9 @@
 """Scenario registry: name → seeded TraceStore builder.
 
-The four generator families of :mod:`repro_torch.scenarios.generators`
+The six generator families of :mod:`repro_torch.scenarios.generators`
 with their default configs, as in ``repro/scenarios/registry.py``.  The
-reference's other names (the paper workloads, ``scale-stress``,
-``multi-tenant`` and the chaos families) are not ported yet and raise
-``KeyError``.
+reference's other names (the paper workloads and the chaos families) are
+not ported yet and raise ``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,8 +16,8 @@ from repro_torch.scenarios.trace import TraceStore
 Builder = Callable[[int, Optional[int]], TraceStore]
 
 # Reference scenario names whose port is still queued (ROADMAP.md).
-NOT_PORTED = ("paper-bursty", "paper-slow", "paper-mixed", "scale-stress",
-              "multi-tenant", "spot-spike", "zone-outage", "capacity-crunch")
+NOT_PORTED = ("paper-bursty", "paper-slow", "paper-mixed", "spot-spike",
+              "zone-outage", "capacity-crunch")
 
 
 def _family_builder(cfg) -> Builder:
@@ -33,6 +32,8 @@ _REGISTRY: Dict[str, Builder] = {
     "flash-crowd": _family_builder(_g.FlashCrowd()),
     "heavy-tail": _family_builder(_g.HeavyTail()),
     "mix-ramp": _family_builder(_g.MixRamp()),
+    "scale-stress": _family_builder(_g.AutoscalerStress()),
+    "multi-tenant": _family_builder(_g.MultiTenant()),
 }
 
 

@@ -3,8 +3,8 @@
 A lean copy of ``repro/scenarios/trace.py``: one arrival per row across
 NumPy columns, built from a template table and per-row template ids,
 arrival times and (optionally) durations.  It keeps what the lane engine
-needs — the columns, ``n``, ``slice`` and ``to_lane_arrays`` — and none of
-the serial engine's replay, persistence or composition helpers.
+needs — the columns, ``n``, ``slice``, ``merge`` and ``to_lane_arrays`` —
+and none of the serial engine's replay or persistence helpers.
 """
 from __future__ import annotations
 
@@ -92,3 +92,29 @@ class TraceStore:
         return TraceStore(self.templates, self.template_id[lo:hi].copy(),
                           self.arrival_time[lo:hi].copy(),
                           self.duration_s[lo:hi].copy(), name=self.name)
+
+    @classmethod
+    def merge(cls, traces: Sequence["TraceStore"],
+              name: str = "merged") -> "TraceStore":
+        """Interleave independent streams into one time-sorted trace
+        (stable: equal-time rows keep stream order).  Templates are
+        deduplicated by object identity."""
+        templates: List[JobType] = []
+        tmap: Dict[int, int] = {}
+        tids, times, durs = [], [], []
+        for tr in traces:
+            remap = np.empty(max(len(tr.templates), 1), np.int32)
+            for i, s in enumerate(tr.templates):
+                j = tmap.get(id(s))
+                if j is None:
+                    j = len(templates)
+                    templates.append(s)
+                    tmap[id(s)] = j
+                remap[i] = j
+            tids.append(remap[tr.template_id])
+            times.append(tr.arrival_time)
+            durs.append(tr.duration_s)
+        if not times:
+            return cls([], [], [], name=name)
+        return cls(templates, np.concatenate(tids), np.concatenate(times),
+                   np.concatenate(durs), name=name)

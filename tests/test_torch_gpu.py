@@ -1,20 +1,30 @@
-"""PyTorch port on the card: the CUDA kernel and the lane engine on CUDA.
+"""PyTorch port on the card: the CUDA kernels, the lane engine and the
+forecaster on CUDA.
 
 Every test here is marked ``gpu`` and skips itself without a CUDA card
-(the kernel has no CPU mode).  On the card::
+(the kernels have no CPU mode).  On the card::
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 The file imports only torch, numpy and the port, so it runs where JAX is
 not installed.
 """
+import hashlib
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.forecast import features, model
+from repro_torch.kernels import mlstm_chunkwise as mlstm
 from repro_torch.manyworld import lanes, select
 from repro_torch.search.runner import CellSpec, _get_trace, run_cells
+
+GOLDEN = Path(__file__).resolve().parent / "data" / "torch_forecaster_golden"
+FAMILIES = ("diurnal", "flash-crowd", "heavy-tail", "mix-ramp",
+            "scale-stress", "multi-tenant")
 
 
 @pytest.fixture
@@ -93,3 +103,112 @@ def test_rows_on_cuda_equal_cpu(cuda):
     for g, c in zip(on_gpu, on_cpu):
         g.pop("wall_s"), c.pop("wall_s")
         assert g == c
+
+
+# (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
+# the golden dataset's batch, tests/test_kernels.py's shapes in both
+# dtypes, T = L, dv not a multiple of the kernel's 32-column slice, a
+# given initial state, and the kernel's limits (L = 64, dk = 128).
+MLSTM_CASES = (
+    (8668, 2, 16, 32, 32, 64, "float32", False),
+    (1, 1, 128, 64, 64, 64, "float32", False),
+    (1, 1, 128, 64, 64, 64, "bfloat16", False),
+    (2, 2, 128, 32, 32, 32, "float32", False),
+    (2, 2, 128, 32, 32, 32, "bfloat16", False),
+    (4, 2, 64, 32, 32, 64, "float32", False),
+    (2, 2, 64, 32, 48, 16, "float32", False),
+    (3, 1, 32, 24, 20, 16, "float32", True),
+    (1, 2, 128, 128, 64, 64, "float32", True),
+)
+# tests/test_kernels.py:160's tolerances: float32 sums in another order,
+# bfloat16 outputs rounded.
+TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
+       "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+
+
+def _mlstm_inputs(case, device):
+    B, H, T, dk, dv, chunk, dtype, with_state = case
+    rng = np.random.default_rng(B * 1000 + T + dk + dv)
+    arrays = [rng.standard_normal((B, H, T, dk)),
+              rng.standard_normal((B, H, T, dk)) / np.sqrt(dk),
+              rng.standard_normal((B, H, T, dv)),
+              rng.standard_normal((B, H, T)),
+              rng.standard_normal((B, H, T)) + 2.0]
+    inputs = [torch.tensor(a, dtype=getattr(torch, dtype), device=device)
+              for a in arrays]
+    state = None
+    if with_state:
+        state = tuple(torch.tensor(a, dtype=torch.float32, device=device)
+                      for a in (rng.standard_normal((B, H, dk, dv)),
+                                np.abs(rng.standard_normal((B, H, dk))),
+                                rng.standard_normal((B, H))))
+    return inputs, state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MLSTM_CASES)
+def test_mlstm_kernel_matches_plain_on_cuda(cuda, case):
+    inputs, state = _mlstm_inputs(case, cuda)
+    chunk, dtype = case[5], case[6]
+    before = mlstm.launches
+    h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk)
+    h_only, none = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk,
+                                         return_state=False)
+    torch.cuda.synchronize()
+    assert mlstm.launches == before + 2 and none is None
+    want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
+                                                 chunk=chunk)
+    assert h.dtype == want_h.dtype == getattr(torch, dtype)
+    assert torch.equal(h, h_only)
+    torch.testing.assert_close(h.float(), want_h.float(), **TOL[dtype])
+    for got, want in zip(s, want_s):
+        assert got.dtype == torch.float32
+        torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
+    inputs, _ = _mlstm_inputs((1, 1, 16, 8, 8, 16, "float32", False), cuda)
+    q, k, v, i, f = inputs
+    with pytest.raises(TypeError):
+        mlstm.mlstm_chunkwise(q.half(), k, v, i, f)
+    with pytest.raises(ValueError, match="device"):
+        mlstm.mlstm_chunkwise(q, k.cpu(), v, i, f)
+    with pytest.raises(ValueError, match="dk <= 128"):
+        big, _ = _mlstm_inputs((1, 1, 16, 384, 8, 16, "float32", False), cuda)
+        mlstm.mlstm_chunkwise(*big)
+
+
+def _digest(data) -> str:
+    h = hashlib.sha256()
+    for key in ("X_train", "y_train", "X_val", "y_val"):
+        h.update(np.ascontiguousarray(data[key], np.float64).tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.gpu
+def test_forecaster_reproduces_golden_fixture_on_cuda(cuda):
+    with np.load(GOLDEN / "expected.npz", allow_pickle=False) as z:
+        want = {key: z[key] for key in z.files}
+    data = features.make_dataset(FAMILIES, range(48), features.WindowConfig())
+    assert _digest(data) == str(want["digest"])
+    fc = model.load_forecaster(str(GOLDEN / "checkpoint"))
+    assert fc.device.type == "cuda"
+    X = np.concatenate([data["X_train"], data["X_val"]])
+    before = mlstm.launches
+    with torch.inference_mode():
+        out = model.apply_forecast(
+            fc.params, torch.from_numpy(np.log1p(X.astype(np.float32))).to(
+                cuda), fc.arch).cpu().numpy()
+    assert mlstm.launches == before + 1
+    np.testing.assert_allclose(out, want["outputs"], atol=2e-5, rtol=2e-5)
+    n_train = int(want["n_train"])
+    mse = float(np.mean((out[n_train:] - np.log1p(
+        data["y_val"].astype(np.float32))) ** 2))
+    assert abs(mse - float(want["val_log_mse"])) < 1e-4
+    seq = []
+    for r in want["flash_rates"]:
+        fc.observe_bin(r)
+        seq.append(fc.predict())
+    np.testing.assert_allclose(np.asarray(seq), want["per_bin"], rtol=1e-4,
+                               atol=1e-6)

@@ -22,7 +22,8 @@ from repro_torch.core import workload as port_workload
 from repro_torch.scenarios import build_scenario as port_build
 from repro_torch.search import runner as port_runner
 
-FAMILIES = ("heavy-tail", "diurnal", "flash-crowd", "mix-ramp")
+FAMILIES = ("heavy-tail", "diurnal", "flash-crowd", "mix-ramp",
+            "scale-stress", "multi-tenant")
 
 
 @pytest.mark.parametrize("n_jobs", (0, 24, 40, 2000))
@@ -32,8 +33,9 @@ def test_lane_arrays_bit_identical(scenario, n_jobs):
         try:
             want = ref_build(scenario, seed=seed, n_jobs=n_jobs)
         except IndexError:
-            # diurnal / flash-crowd cannot build an empty trace; the port
-            # fails the same way.
+            # diurnal / flash-crowd / scale-stress (and multi-tenant, whose
+            # trio holds a diurnal tenant) cannot build an empty trace; the
+            # port fails the same way.
             with pytest.raises(IndexError):
                 port_build(scenario, seed=seed, n_jobs=n_jobs)
             continue
@@ -59,7 +61,7 @@ def test_default_sizes_and_slice():
 
 
 def test_unported_scenarios_raise_keyerror():
-    for name in ("paper-bursty", "scale-stress", "multi-tenant",
+    for name in ("paper-bursty", "paper-mixed", "spot-spike",
                  "capacity-crunch"):
         with pytest.raises(KeyError, match="ROADMAP"):
             port_build(name)
@@ -108,3 +110,18 @@ def test_cellspec_fields_defaults_and_labels():
         got, ref = port_runner.CellSpec(**kw), ref_runner.CellSpec(**kw)
         assert got.label == ref.label
         assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+
+
+def test_merge_interleaves_and_dedups_templates():
+    from repro.scenarios.trace import TraceStore as RefTraceStore
+    from repro_torch.scenarios.trace import TraceStore
+    ref_parts = [ref_build(s, seed=1, n_jobs=30)
+                 for s in ("diurnal", "heavy-tail", "diurnal")]
+    parts = [port_build(s, seed=1, n_jobs=30)
+             for s in ("diurnal", "heavy-tail", "diurnal")]
+    got, want = TraceStore.merge(parts, "m"), RefTraceStore.merge(ref_parts)
+    assert got.n == want.n == 90
+    assert len(got.templates) == len(want.templates)
+    for col in ("arrival_time", "template_id", "duration_s", "kind"):
+        assert np.array_equal(getattr(got, col), getattr(want, col)), col
+    assert TraceStore.merge([]).n == 0

@@ -15,7 +15,7 @@ jax = pytest.importorskip("jax")
 
 from repro.manyworld import select as ref_select
 
-from repro_torch.manyworld import _build
+from repro_torch import _build
 from repro_torch.manyworld import select as port_select
 
 
