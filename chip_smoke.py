@@ -40,7 +40,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    full width (cold and warm, windows/s), mlstm kernel launches, peak
    device memory, ``LearnedForecaster.predict`` latency over a whole
    flash-crowd trace's bins, and the val log-MSE of the mLSTM, EWMA and
-   AR(1) forecasters.
+   AR(1) forecasters;
+9. flash   — the flash-attention kernel against its plain version on
+   edge shapes and at the serving shape (B 1, 16 query heads, 1 kv head,
+   T 3072, hd 256, window 2048, bfloat16), its device time there beside
+   its bound, the plain version's time and ``scaled_dot_product_attention``
+   with the same mask as a yardstick;
+10. rglru  — the RG-LRU scan kernel against its plain version on edge
+   shapes and at the serving shape (B 1, T 3072, R 4096, float32 in,
+   bfloat16 out), its device time there beside its bound and the plain
+   version's time;
+11. serve golden — the fixture ``tests/data/torch_serve_golden`` (an
+   8-layer float32 RecurrentGemma twin's parameters and JAX's prefill and
+   decode logits and greedy engine tokens): the port on the card through
+   both kernels reproduces them;
+12. serve main — full-width RecurrentGemma-9B (38 layers, 8.58 G
+   parameters drawn on the card in bfloat16 from a seeded CUDA
+   generator) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
+   greedy, 16 requests at t = 0 with prompts of 256–3072 tokens and 64
+   new tokens each, through ``run_server``: tokens/s, mean TTFT, prefill
+   ms by prompt length, decode step ms, peak device memory, kernel
+   launches, profiled windows of decode steps and of one prefill, and
+   decode logits against teacher-forced ``forward_train`` logits for a
+   request past the window.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -69,6 +91,8 @@ FLASH_SEED = 0
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12           # H100 SXM FP64 outside the tensor cores
 FP32_OPS_PER_S = 67e12           # H100 SXM FP32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+SERVE_GOLDEN = ROOT / "tests" / "data" / "torch_serve_golden" / "expected.npz"
 # mlstm kernel vs plain: the JAX kernel test's tolerances.
 MLSTM_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
              "bfloat16": dict(atol=5e-2, rtol=5e-2)}
@@ -116,10 +140,10 @@ def phase_build() -> None:
                       for name, r in report.items()}})
 
 
-def _call_ms(torch, fn, iters: int) -> float:
+def _call_ms(torch, fn, iters: int, warmup: int = 20) -> float:
     """Wall time per call over ``iters`` back-to-back calls (CUDA events):
     the rate at which the host can issue the call, device work included."""
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -143,11 +167,22 @@ def _device_events(prof):
             and not ev.name.startswith("ProfilerStep")]
 
 
-def _device_ms(torch, fn, iters: int) -> float:
+def _timed_ms(torch, fn, iters: int, warmup: int) -> dict:
+    """Device time per call from torch.profiler and, beside it, the
+    CUDA-event time per call over back-to-back calls; ``ms`` is the
+    first, or the second where the profiler recorded no device event."""
+    device = _device_ms(torch, fn, iters, warmup)
+    events = _call_ms(torch, fn, iters, warmup)
+    return {"ms": device if device > 0 else events, "profiler_ms": device,
+            "cuda_event_ms": events,
+            "source": "profiler" if device > 0 else "cuda events"}
+
+
+def _device_ms(torch, fn, iters: int, warmup: int = 20) -> float:
     """Device time per call: the summed durations of the kernels (and
     copies) that ``iters`` calls ran on the card, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(20):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -696,6 +731,427 @@ def phase_forecast_main(torch, np, dev, data) -> dict:
     return line
 
 
+# (B, T, R, input dtype, output dtype): the serving shape first (float32
+# coefficients from _coeffs, bfloat16 out), then T = 1, T and R not
+# multiples of any block, B > 1, bfloat16 inputs.
+RGLRU_CASES = (
+    (1, 3072, 4096, "float32", "bfloat16"),
+    (1, 1, 4096, "float32", "float32"),
+    (3, 517, 100, "float32", "float32"),
+    (2, 33, 4096, "bfloat16", "bfloat16"),
+    (2, 200, 257, "bfloat16", "float32"),
+    (1, 15, 31, "float32", "bfloat16"),
+    (1, 3072, 4096, "float32", "float32"),
+)
+# Chunk carries chained in another order than the sequential walk
+# (float32 rounding); a bfloat16 output may round one ulp apart.
+RGLRU_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(atol=1e-2, rtol=1e-2)}
+
+
+def _rglru_inputs(torch, np, case, dev):
+    B, T, R, dtype, _ = case
+    rng = np.random.default_rng(B * 7919 + T * 31 + R)
+    a = rng.uniform(0.5, 0.999, (B, T, R))
+    b = 0.1 * rng.standard_normal((B, T, R))
+    return [torch.tensor(x, dtype=getattr(torch, dtype), device=dev)
+            for x in (a, b)]
+
+
+def phase_rglru(torch, np, dev) -> dict:
+    from repro_torch.kernels import rglru_scan as rglru
+    results = {}
+    for case in RGLRU_CASES:
+        B, T, R, dtype, out_dtype = case
+        name = f"{B}x{T}x{R}/{dtype}->{out_dtype}"
+        a, b = _rglru_inputs(torch, np, case, dev)
+        od = getattr(torch, out_dtype)
+        h = rglru.rglru_scan(a, b, out_dtype=od)
+        torch.cuda.synchronize()
+        want = rglru.rglru_scan_plain(a, b, out_dtype=od)
+        ok = h.dtype == want.dtype == od and torch.allclose(
+            h.float(), want.float(), **RGLRU_TOL[out_dtype])
+        results[name] = {"match": ok, "max_abs_err": float(
+            (h.float() - want.float()).abs().max())}
+        if not ok:
+            emit({"phase": "rglru", "cases": results})
+            raise SystemExit(f"rglru_scan disagrees with its plain version "
+                             f"on {name}")
+    B, T, R = RGLRU_CASES[0][:3]
+    a, b = _rglru_inputs(torch, np, RGLRU_CASES[0], dev)
+    bf16 = torch.bfloat16
+    calls = {"kernel": lambda: rglru.rglru_scan(a, b, out_dtype=bf16),
+             "plain": lambda: rglru.rglru_scan_plain(a, b, out_dtype=bf16)}
+    timed = {"kernel": _timed_ms(torch, calls["kernel"], 200, 20),
+             "plain": _timed_ms(torch, calls["plain"], 3, 2)}
+    device_ms = {k_: v["ms"] for k_, v in timed.items()}
+    nbytes = B * T * R * (4 + 4 + 2)       # a, b float32 in, h bfloat16 out
+    ops = 2 * B * T * R                    # one multiply-add per element
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    line = {"phase": "rglru", "cases": results, "tolerance": RGLRU_TOL,
+            "shape": [B, T, R], "kernel_ms": device_ms["kernel"],
+            "plain_ms": device_ms["plain"], "library_ms": None,
+            "library_call": "no single PyTorch call computes this "
+                            "recurrence",
+            "timing": timed, "bytes": nbytes, "ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "max_abs_err": max(r["max_abs_err"] for n, r in results.items()
+                               if n.endswith("float32")),
+            "max_abs_err_bf16": max(r["max_abs_err"] for n, r in
+                                    results.items()
+                                    if n.endswith("bfloat16"))}
+    emit(line)
+    return line
+
+
+# (B, Hq, Hkv, T, S, hd, causal, window, dtype): the serving shape first,
+# then tests/test_kernels.py's sweep (MHA, GQA, MQA with hd 256), a
+# window, a window wider than T with T not a multiple of the block,
+# T = 1, hd 48 (zero-padded in the kernel), a non-causal call, and the
+# serving shape in float32.
+FLASH_CASES = (
+    (1, 16, 1, 3072, 3072, 256, True, 2048, "bfloat16"),
+    (1, 1, 1, 128, 128, 64, True, 0, "float32"),
+    (2, 4, 4, 256, 256, 64, True, 0, "bfloat16"),
+    (2, 8, 2, 256, 256, 128, True, 0, "float32"),
+    (2, 8, 2, 256, 256, 128, True, 0, "bfloat16"),
+    (1, 6, 1, 384, 384, 256, True, 0, "bfloat16"),
+    (1, 6, 1, 384, 384, 256, True, 0, "float32"),
+    (2, 2, 2, 256, 256, 64, True, 64, "float32"),
+    (1, 2, 1, 100, 100, 128, True, 300, "float32"),
+    (1, 4, 1, 1, 1, 256, True, 16, "bfloat16"),
+    (2, 3, 1, 77, 77, 48, True, 0, "float32"),
+    (1, 2, 2, 130, 130, 64, False, 0, "float32"),
+    (1, 16, 1, 3072, 3072, 256, True, 2048, "float32"),
+)
+# tests/test_kernels.py's tolerances for the Pallas kernel against its
+# oracle: float32 sums in another order, bfloat16 outputs rounded.
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+def _flash_inputs(torch, np, case, dev):
+    B, Hq, Hkv, T, S, hd, _, _, dtype = case
+    rng = np.random.default_rng(B + Hq * 10 + T + hd)
+    return [torch.tensor(rng.standard_normal(shape),
+                         dtype=getattr(torch, dtype), device=dev)
+            for shape in ((B, Hq, T, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))]
+
+
+def phase_flash(torch, np, dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as flash
+    results = {}
+    for case in FLASH_CASES:
+        B, Hq, Hkv, T, S, hd, causal, window, dtype = case
+        name = (f"{B}x{Hq}/{Hkv}x{T}x{S}x{hd}/"
+                f"{'causal' if causal else 'full'}/w{window}/{dtype}")
+        q, k, v = _flash_inputs(torch, np, case, dev)
+        out = flash.flash_attention(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        want = flash.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window)
+        ok = out.dtype == want.dtype and torch.allclose(
+            out.float(), want.float(), **FLASH_TOL[dtype])
+        results[name] = {"match": ok, "max_abs_err": float(
+            (out.float() - want.float()).abs().max())}
+        if not ok:
+            emit({"phase": "flash", "cases": results})
+            raise SystemExit(f"flash_attention disagrees with its plain "
+                             f"version on {name}")
+    B, Hq, Hkv, T, S, hd, causal, window, _ = FLASH_CASES[0]
+    q, k, v = _flash_inputs(torch, np, FLASH_CASES[0], dev)
+    mask = flash._mask(T, S, causal, window, dev)
+    calls = {
+        "kernel": lambda: flash.flash_attention(q, k, v, causal=causal,
+                                                window=window),
+        "plain": lambda: flash.flash_attention_plain(q, k, v, causal=causal,
+                                                     window=window),
+        "library": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True),
+    }
+    timed = {k_: _timed_ms(torch, fn, 20, 3) for k_, fn in calls.items()}
+    device_ms = {k_: v["ms"] for k_, v in timed.items()}
+    pairs = int(mask.sum())                 # visible (query, key) pairs
+    ops = B * Hq * pairs * 4 * hd           # q.k and p.v, 2 each per elt
+    nbytes = 2 * (2 * B * Hq * T * hd + 2 * B * Hkv * S * hd)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    line = {"phase": "flash", "cases": results, "tolerance": FLASH_TOL,
+            "shape": [B, Hq, Hkv, T, S, hd], "window": window,
+            "kernel_ms": device_ms["kernel"], "plain_ms": device_ms["plain"],
+            "library_ms": device_ms["library"], "timing": timed,
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "attn_mask=bool mask, enable_gqa=True)",
+            "visible_pairs_per_head": pairs, "flops": ops, "bytes": nbytes,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "kernel_tflops": ops / (device_ms["kernel"] * 1e-3) / 1e12,
+            "max_abs_err": max(r["max_abs_err"] for n, r in results.items()
+                               if n.endswith("float32")),
+            "max_abs_err_bf16": max(r["max_abs_err"] for n, r in
+                                    results.items()
+                                    if n.endswith("bfloat16"))}
+    emit(line)
+    return line
+
+
+# The serve fixture's runs, as tests/test_torch_serve.py makes them:
+# prefill of 13 tokens into a cache of 32 then 5 decode steps, and the
+# engine run (prompt length, max_new_tokens, submitted_at) on 2 slots.
+SERVE_PREFILL_LEN, SERVE_DECODE_STEPS, SERVE_PREFILL_CACHE = 13, 5, 32
+SERVE_ENGINE_REQS = ((13, 6, 0.0), (4, 8, 0.0), (21, 5, 1.0), (9, 7, 2.5),
+                     (17, 4, 2.5))
+SERVE_METRIC_KEYS = ("elapsed_s", "mean_ttft_s", "requests", "tokens",
+                     "tokens_per_s")
+SERVE_TOL = dict(atol=1e-4, rtol=1e-3)     # float32 logits vs JAX
+
+
+def phase_serve_golden(torch, np, dev) -> None:
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rglru_scan as rglru
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import map_tree, params_from_numpy
+    from repro_torch.serve import engine as serve
+    with np.load(SERVE_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", tiny=True),
+                              num_layers=8, dtype="float32")
+    tree = map_tree(lambda path, _: fx["param/" + "/".join(map(str, path))],
+                    tf.model_specs(cfg))
+    params = params_from_numpy(tree, dev, dtype=tf.serving_dtype(cfg))
+    before = (flash.launches, rglru.launches)
+    tokens = torch.from_numpy(fx["tokens"]).long().to(dev)
+    L = SERVE_PREFILL_LEN
+    lg, states = tf.prefill(params, {"tokens": tokens[:, :L]}, cfg,
+                            SERVE_PREFILL_CACHE)
+    errs = [float(np.abs(lg.cpu().numpy() - fx["prefill_logits"]).max())]
+    ok = np.allclose(lg.cpu().numpy(), fx["prefill_logits"], **SERVE_TOL)
+    for s in range(SERVE_DECODE_STEPS):
+        lg, states = tf.decode_step(params, tokens[:, L + s:L + s + 1],
+                                    states, cfg)
+        got = lg.cpu().numpy()
+        errs.append(float(np.abs(got - fx["decode_logits"][s]).max()))
+        ok = ok and np.allclose(got, fx["decode_logits"][s], **SERVE_TOL)
+    now = [0.0]
+
+    def clock():
+        now[0] += 0.25
+        return now[0]
+
+    def sleep(dt):
+        now[0] += dt
+
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=2, cache_len=40), clock=clock, device=dev)
+    reqs, at = [], 0
+    for i, (n, new, t) in enumerate(SERVE_ENGINE_REQS):
+        reqs.append(serve.Request(uid=i, prompt=fx["engine_prompts"][at:at + n],
+                                  max_new_tokens=new, submitted_at=t))
+        at += n
+    metrics = serve.run_server(eng, reqs, log=lambda s: None, clock=clock,
+                               sleep=sleep)
+    tokens_equal = all(r.tokens == [int(t) for t in want if t >= 0]
+                       for r, want in zip(reqs, fx["engine_tokens"]))
+    stamps_equal = np.array_equal(np.asarray(
+        [(r.first_token_at, r.done_at) for r in reqs]), fx["engine_stamps"])
+    metrics_equal = [metrics[k] for k in SERVE_METRIC_KEYS] == \
+        fx["engine_metrics"].tolist()
+    launched = (flash.launches - before[0], rglru.launches - before[1])
+    emit({"phase": "serve_golden", "layers": cfg.num_layers,
+          "logits_within_tol": bool(ok), "tolerance": SERVE_TOL,
+          "logits_max_abs_err": max(errs), "engine_tokens_equal": tokens_equal,
+          "engine_stamps_equal": stamps_equal,
+          "engine_metrics_equal": metrics_equal,
+          "flash_launches": launched[0], "rglru_launches": launched[1]})
+    if not (ok and tokens_equal and stamps_equal and metrics_equal) \
+            or min(launched) == 0:
+        raise SystemExit("serve golden: the port on the card does not "
+                         "reproduce the JAX fixture through both kernels")
+
+
+SERVE_REQUESTS = 16
+SERVE_NEW_TOKENS = 64
+SERVE_SLOTS = 8
+SERVE_CACHE = 4096
+# Decode against teacher forcing at full width in bfloat16: the kernel
+# keeps the softmax weights in float32 where decode rounds them to
+# bfloat16, and decode carries the RG-LRU state in float32 where the
+# prefill scan rounds it, over 38 layers.
+SERVE_CONSISTENCY_REL = 0.1
+
+
+def _busy(events, wall_s):
+    """(device busy ms, summed device ms, top ops) over sorted events."""
+    events = sorted(events, key=lambda e: e[1])
+    busy_us, reach, by_name = 0.0, float("-inf"), {}
+    for name, start_us, end_us in events:
+        busy_us += max(0.0, end_us - max(start_us, reach))
+        reach = max(reach, end_us)
+        tot = by_name.setdefault(name, [0, 0.0])
+        tot[0] += 1
+        tot[1] += end_us - start_us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"wall_ms": wall_s * 1e3, "device_busy_ms": busy_us * 1e-3,
+            "device_ms": sum(v[1] for v in by_name.values()) * 1e-3,
+            "device_busy_share": busy_us * 1e-6 / wall_s,
+            "device_events": len(events),
+            "top_device_ops": [{"name": k[:80], "count": v[0],
+                                "ms": v[1] * 1e-3} for k, v in top]}
+
+
+def _profiled(torch, fn):
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return _busy(_device_events(prof), wall)
+
+
+def phase_serve_main(torch, np, dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import rglru_scan as rglru
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serve import engine as serve
+    cfg = get_config("recurrentgemma-9b")
+    specs = tf.model_specs(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(specs, gen, dev, dtype=tf.serving_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       _leaves(params))
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(256, 3073, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    reqs = [serve.Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS,
+                          submitted_at=0.0) for i, p in enumerate(prompts)]
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE), device=dev)
+    prefill_ms, step_ms = [], []
+    admit, step = eng.admit, eng.step
+
+    def timed_admit(req):
+        t = time.perf_counter()
+        ok = admit(req)               # ends in a host read (first token)
+        if ok:
+            prefill_ms.append((len(req.prompt),
+                               (time.perf_counter() - t) * 1e3))
+        return ok
+
+    def timed_step():
+        t = time.perf_counter()
+        out = step()                  # ends in a host read (new tokens)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.admit, eng.step = timed_admit, timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.launches = 0
+    rglru.launches = 0
+    t0 = time.perf_counter()
+    metrics = serve.run_server(eng, reqs, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash.launches,
+                "rglru_scan": rglru.launches}
+    peak = torch.cuda.max_memory_allocated()
+    eng.admit, eng.step = admit, step
+    bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    if bad or metrics["requests"] != SERVE_REQUESTS:
+        raise SystemExit(f"serve main: malformed outputs for {bad}")
+    if min(launches.values()) == 0:
+        raise SystemExit(f"serve main ran without launching a kernel: "
+                         f"{launches}")
+
+    # Profiled windows: 8 decode steps with every slot busy, and one
+    # prefill of the longest prompt.
+    for i in range(SERVE_SLOTS):
+        eng.admit(serve.Request(uid=100 + i, prompt=prompts[i][:256],
+                                max_new_tokens=SERVE_NEW_TOKENS))
+    eng.step()
+    smi = _run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                "temperature.gpu", "--format=csv,noheader"])
+    decode_window = _profiled(torch, lambda: [eng.step() for _ in range(8)])
+    decode_window["steps"] = 8
+    longest = int(np.argmax(lengths))
+    tokens = torch.as_tensor(prompts[longest], dtype=torch.int64,
+                             device=dev)[None]
+    prefill_window = _profiled(
+        torch, lambda: tf.prefill(params, {"tokens": tokens}, cfg,
+                                  SERVE_CACHE))
+    prefill_window["prompt_tokens"] = int(lengths[longest])
+
+    # Self-consistency at full width: prefill a prompt past the window,
+    # decode 8 tokens, and hold the logits to teacher forcing.
+    P, K = int(lengths[longest]), 8
+    seq = torch.as_tensor(np.concatenate([prompts[longest], rng.integers(
+        0, cfg.vocab_size, K).astype(np.int32)]), dtype=torch.int64,
+        device=dev)[None]
+    lg, st = tf.prefill(params, {"tokens": seq[:, :P]}, cfg, SERVE_CACHE)
+    dec = [lg]
+    for i in range(P, P + K - 1):
+        lg, st = tf.decode_step(params, seq[:, i:i + 1], st, cfg)
+        dec.append(lg)
+    del st
+    full, _ = tf.forward_train(params, {"tokens": seq[:, :P + K - 1]}, cfg)
+    want = full[0, P - 1:P + K - 1].float()
+    got = torch.cat(dec).float()
+    del full
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    argmax_agree = int((got[:, :cfg.vocab_size].argmax(-1)
+                        == want[:, :cfg.vocab_size].argmax(-1)).sum())
+    consistent = err <= SERVE_CONSISTENCY_REL * scale
+    steps = np.asarray(step_ms)
+    line = {"phase": "serve_main", "arch": cfg.name,
+            "layers": cfg.num_layers, "params": count_params(specs),
+            "weight_bytes": weight_bytes, "param_init_s": init_s,
+            "num_slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+            "prompt_tokens": int(lengths.sum()),
+            "prompts_past_window": int((lengths > cfg.sliding_window).sum()),
+            "run_server": metrics, "wall_s": wall,
+            "prefill_ms_by_prompt_len": sorted(prefill_ms),
+            "decode_steps": len(step_ms),
+            "decode_step_ms_median": float(np.median(steps)),
+            "decode_step_ms_p99": float(np.percentile(steps, 99)),
+            "decode_step_ms_max": float(steps.max()),
+            "peak_device_bytes": peak, "launches": launches,
+            "nvidia_smi_clocks_power": smi,
+            "decode_window": decode_window, "prefill_window": prefill_window,
+            "consistency": {"prompt_tokens": P, "decode_steps": K - 1,
+                            "max_abs_err": err, "max_abs_logit": scale,
+                            "limit": SERVE_CONSISTENCY_REL * scale,
+                            "argmax_agree": argmax_agree, "of": K}}
+    emit(line)
+    if not consistent:
+        raise SystemExit("serve main: decode logits disagree with teacher "
+                         "forcing at full width")
+    return line
+
+
+
+def _leaves(tree):
+    from repro_torch.models.params import leaves_with_paths
+    return [t for _, t in leaves_with_paths(tree)]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -711,6 +1167,10 @@ def main() -> int:
     m = phase_mlstm(torch, np, dev)
     data = phase_forecast_golden(torch, np, dev)
     forecast_line = phase_forecast_main(torch, np, dev, data)
+    fl = phase_flash(torch, np, dev)
+    rg = phase_rglru(torch, np, dev)
+    phase_serve_golden(torch, np, dev)
+    serve_line = phase_serve_main(torch, np, dev)
     emit({"kernels": [{
         "name": "masked_argmin", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/masked_argmin.cu",
@@ -727,7 +1187,21 @@ def main() -> int:
         "launches": forecast_line["mlstm_launches"],
         "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
         "plain_ms": m["plain_ms"], "library_ms": None,
-        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}]})
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:39",
+        "launches": serve_line["launches"]["flash_attention"],
+        "max_abs_err": fl["max_abs_err"], "ms": fl["kernel_ms"],
+        "plain_ms": fl["plain_ms"], "library_ms": fl["library_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"]}, {
+        "name": "rglru_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:35",
+        "launches": serve_line["launches"]["rglru_scan"],
+        "max_abs_err": rg["max_abs_err"], "ms": rg["kernel_ms"],
+        "plain_ms": rg["plain_ms"], "library_ms": None,
+        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"]}]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,20 +1,151 @@
-"""Architecture config: the fields of ``repro/configs/base.py ArchConfig``
-that the port's mLSTM block reads.
+"""Architecture configs, as ``repro/configs/base.py``: the fields the
+port's models read, each block's (mixer, mlp) pair, and the layer plan.
 
-The reference's config carries every LM option; the forecaster's trunk
-reads only the widths below (``proj_factor`` and ``conv_width`` at
-``configs/base.py:82-83``), plus a name and family for labels.
+A model is a list of *segments*, each ``repeats`` × a superblock of
+blocks; a segment with ``repeats > 1`` keeps its parameters and decode
+state stacked on a leading layer axis, as the reference's scanned
+segments do, so a parameter tree crosses between the two packages by
+key.  The port builds the dense plan (``attn`` + ``dense``) and the
+Griffin hybrid plan (``rglru`` ×2 + ``local_attn``); the xLSTM and MoE
+plans and the encoder tower raise (ROADMAP Queue 1 item 11).
+
+The forecaster's mLSTM trunk reads ``d_model``, ``num_heads``,
+``proj_factor`` and ``conv_width`` only.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict, List, Tuple
+
+NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 11)"
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSpec:
+    """One block inside a superblock."""
+
+    mixer: str = "attn"          # attn|local_attn|mlstm|slstm|rglru
+    mlp: str = "dense"           # dense|moe|none
+    cross_attn: bool = False     # enc-dec decoder blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """``repeats`` × superblock of ``blocks`` (stacked if repeats > 1)."""
+
+    blocks: Tuple[BlockSpec, ...]
+    repeats: int = 1
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.blocks) * self.repeats
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str                   # dense|moe|ssm|hybrid|audio|vlm
+    num_layers: int
     d_model: int
     num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // num_heads
+
+    # attention
+    use_rope: bool = True
+    rope_theta: float = 10_000.0
+    rotary_pct: float = 1.0
+    qkv_bias: bool = False
+    sliding_window: int = 0       # 0 = global attention
+    parallel_block: bool = False
+    attn_logit_softcap: float = 0.0
+
+    # norm / mlp
+    norm_type: str = "rmsnorm"    # rmsnorm|layernorm
+    act: str = "silu"
+    gated_mlp: bool = True
+    mlp_bias: bool = False
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+
+    # MoE (not ported: a config with experts raises in layer_plan)
+    n_experts: int = 0
+
+    # ssm / hybrid
     proj_factor: float = 2.0      # mLSTM up-projection
     conv_width: int = 4
+    d_rnn: int = 0                # RG-LRU width (0 -> d_model)
+    rglru_pattern: int = 3        # 2 recurrent + 1 local attn per 3 layers
+
+    # encoder-decoder (not ported)
+    is_encoder_decoder: bool = False
+
+    # options of the reference that the port does not run; each raises
+    # NotImplementedError where the reference would read it
+    kv_quant: bool = False
+    pad_heads_to: int = 0
+
+    # numerics
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+
+    source: str = ""
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+    def layer_plan(self) -> List[Segment]:
+        """Decoder segments: the Griffin pattern for ``hybrid``, one
+        stacked segment of dense attention blocks otherwise."""
+        if self.family == "hybrid":
+            return self._rglru_plan()
+        if (self.family == "ssm" or self.n_experts > 0
+                or self.is_encoder_decoder):
+            raise NotImplementedError(
+                f"{self.name}: the {self.family} layer plan is {NOT_PORTED}")
+        return [Segment((BlockSpec("attn", "dense"),),
+                        repeats=self.num_layers)]
+
+    def _rglru_plan(self) -> List[Segment]:
+        """Griffin residual pattern: 2 recurrent blocks, 1 local-attn
+        block, repeated; the remainder as trailing recurrent blocks."""
+        period = self.rglru_pattern
+        full, extra = divmod(self.num_layers, period)
+        blocks = tuple(BlockSpec("rglru", "dense") for _ in range(period - 1)) \
+            + (BlockSpec("local_attn", "dense"),)
+        segs = [Segment(blocks, repeats=full)]
+        if extra:
+            segs.append(Segment(tuple(BlockSpec("rglru", "dense")
+                                      for _ in range(extra)), repeats=1))
+        return segs
+
+
+_REGISTRY: Dict[str, ArchConfig] = {}
+_TINY: Dict[str, ArchConfig] = {}
+
+
+def register(cfg: ArchConfig, tiny: ArchConfig) -> ArchConfig:
+    _REGISTRY[cfg.name] = cfg
+    _TINY[cfg.name] = tiny
+    return cfg
+
+
+def get_config(name: str, *, tiny: bool = False) -> ArchConfig:
+    import repro_torch.configs  # noqa: F401  (registers the configs)
+    table = _TINY if tiny else _REGISTRY
+    if name not in table:
+        raise KeyError(f"arch {name!r} is {NOT_PORTED}; the port has "
+                       f"{sorted(_REGISTRY)}")
+    return table[name]
+
+
+def list_archs() -> List[str]:
+    import repro_torch.configs  # noqa: F401
+    return sorted(_REGISTRY)

@@ -33,9 +33,11 @@ from repro_torch.train import checkpoint
 
 def forecast_arch(d_model: int = 32, num_heads: int = 2) -> ArchConfig:
     """The forecaster's trunk: d_model 32, 2 heads, proj_factor 2, conv
-    width 4 by default."""
-    return ArchConfig(name="rate-mlstm", family="ssm", d_model=d_model,
-                      num_heads=num_heads)
+    width 4 by default; the LM-only fields are the reference's inert
+    placeholders."""
+    return ArchConfig(name="rate-mlstm", family="ssm", num_layers=1,
+                      d_model=d_model, num_heads=num_heads,
+                      num_kv_heads=num_heads, d_ff=2 * d_model, vocab_size=0)
 
 
 def forecast_specs(cfg: ArchConfig) -> Dict:

@@ -1,0 +1,130 @@
+"""Flash attention: online-softmax attention, causal and/or sliding
+window, grouped-query.
+
+``flash_attention`` runs the hand-written CUDA kernel
+``csrc/flash_attention.cu`` on CUDA tensors and its plain PyTorch
+version ``flash_attention_plain`` on CPU tensors; there is no other
+switch.  Both compute what the Pallas kernel
+``repro/kernels/flash_attention.py:39 _flash_kernel`` and its oracle
+``repro/kernels/ref.py:13 attention_ref`` compute: q (B, Hq, T, hd)
+against k, v (B, Hkv, S, hd), query head h reading kv head
+``h // (Hq // Hkv)``, logits ``sm_scale * q.k`` in float32 (default
+``sm_scale = hd ** -0.5``), key j visible to query i when ``j <= i``
+(causal) and ``j > i - window`` (window > 0) on global indices, hidden
+logits at ``NEG_INF = -2**30``, a float32 softmax and a float32
+weighted sum of v, returned in q's dtype.  Any T and S; hd <= 256 in the
+kernel.  Every query row must see at least one key (it does under a
+causal mask with ``S >= T``, the model's only call): a row that sees
+none is 0 in the kernel and the mean of v in the oracle.
+
+``launches`` counts kernel launches, so a run can show that it went
+through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch import _build
+
+NEG_INF = -2.0 ** 30
+MAX_HEAD_DIM = 256
+
+launches = 0
+
+
+def _mask(T: int, S: int, causal: bool, window: int, device) -> torch.Tensor:
+    """(T, S) bool: key j visible to query i."""
+    ti = torch.arange(T, device=device)[:, None]
+    si = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((T, S), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (si <= ti)
+    if window > 0:
+        mask = mask & (si > ti - window)
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          sm_scale: Optional[float] = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, as the oracle computes it:
+    the full (T, S) logits per head, a float32 softmax over them."""
+    B, Hq, T, hd = q.shape
+    _, Hkv, S, _ = k.shape
+    scale = hd ** -0.5 if sm_scale is None else sm_scale
+    qg = q.float().reshape(B, Hkv, Hq // Hkv, T, hd)
+    s = torch.einsum("bkgtd,bksd->bkgts", qg, k.float()) * scale
+    s = s.masked_fill(~_mask(T, S, causal, window, q.device), NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd", w, v.float())
+    return out.reshape(B, Hq, T, hd).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Attention: the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors.  Arguments and result as :func:`flash_attention_plain`."""
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     sm_scale=sm_scale)
+    return _flash_attention_cuda(q, k, v, causal, window, sm_scale)
+
+
+def _kernel():
+    fn = _build.load("flash_attention").flash_attention_launch
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int64,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_float, ctypes.c_int,
+                                            ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _flash_attention_cuda(q, k, v, causal, window, sm_scale):
+    global launches
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("flash_attention: expects q, k, v all float32 or all "
+                        f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention: q must be (B,Hq,T,hd) and k, v "
+                         f"(B,Hkv,S,hd), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Hq, T, hd = q.shape
+    _, Hkv, S, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != hd or Hkv < 1 or Hq % Hkv:
+        raise ValueError("flash_attention: q and k, v do not agree: "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}")
+    if not 1 <= hd <= MAX_HEAD_DIM or S < 1:
+        raise ValueError(f"flash_attention: head dim {hd} and key length "
+                         f"{S}; the kernel takes 1 <= hd <= {MAX_HEAD_DIM} "
+                         "and S >= 1")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention: tensors must be contiguous")
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError("flash_attention: every tensor must lie on one CUDA "
+                         f"device, got {q.device}, {k.device}, {v.device}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    scale = hd ** -0.5 if sm_scale is None else float(sm_scale)
+    launch = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    B, Hq, Hkv, T, S, hd, scale, int(bool(causal)),
+                    max(int(window), 0), _DTYPE_CODE[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention: kernel launch failed with "
+                           f"cudaError {rc}")
+    launches += 1
+    return out

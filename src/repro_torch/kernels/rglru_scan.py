@@ -1,0 +1,92 @@
+"""RG-LRU diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
+
+``rglru_scan`` runs the hand-written CUDA kernel ``csrc/rglru_scan.cu``
+on CUDA tensors and its plain PyTorch version ``rglru_scan_plain`` on CPU
+tensors; there is no other switch.  Both compute what the Pallas kernel
+``repro/kernels/rglru_scan.py:35 _rglru_kernel`` and its oracle
+``repro/kernels/ref.py:40 rglru_scan_ref`` compute: a walk over time from
+``h = 0`` with a float32 carry, for any ``T`` and ``R``.  The result is
+written in ``out_dtype`` (default: a's dtype); the model path passes
+float32 coefficients and asks for its activation dtype, the cast its
+reference applies right after the scan (``models/rglru.py:93``).
+
+``launches`` counts kernel launches, so a run can show that it went
+through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch import _build
+
+launches = 0
+
+
+def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, the oracle's sequential
+    loop.  a, b: (B, T, R) -> h (B, T, R) in ``out_dtype``."""
+    af, bf = a.float(), b.float()
+    h = torch.zeros_like(af[:, 0])
+    out = torch.empty_like(af)
+    for t in range(a.shape[1]):
+        h = af[:, t] * h + bf[:, t]
+        out[:, t] = h
+    return out.to(out_dtype or a.dtype)
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The RG-LRU recurrence: the CUDA kernel on CUDA tensors, the plain
+    version on CPU tensors.  Arguments and result as
+    :func:`rglru_scan_plain`."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return rglru_scan_plain(a, b, out_dtype)
+    return _rglru_scan_cuda(a, b, out_dtype or a.dtype)
+
+
+def _kernel():
+    fn = _build.load("rglru_scan").rglru_scan_launch
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _rglru_scan_cuda(a, b, out_dtype):
+    global launches
+    if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
+        raise TypeError("rglru_scan: expects a and b both float32 or both "
+                        f"bfloat16, got {a.dtype}, {b.dtype}")
+    if out_dtype not in _DTYPE_CODE:
+        raise TypeError(f"rglru_scan: out_dtype {out_dtype} is not float32 "
+                        "or bfloat16")
+    if a.dim() != 3 or b.shape != a.shape:
+        raise ValueError("rglru_scan: a and b must be (B,T,R) of one shape, "
+                         f"got {tuple(a.shape)}, {tuple(b.shape)}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("rglru_scan: tensors must be contiguous")
+    dev = a.device
+    if dev.type != "cuda" or b.device != dev:
+        raise ValueError("rglru_scan: both tensors must lie on one CUDA "
+                         f"device, got {a.device}, {b.device}")
+    B, T, R = a.shape
+    h = torch.empty((B, T, R), dtype=out_dtype, device=dev)
+    if h.numel() == 0:
+        return h
+    launch = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = launch(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, T, R,
+                    _DTYPE_CODE[a.dtype], _DTYPE_CODE[out_dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"rglru_scan: kernel launch failed with "
+                           f"cudaError {rc}")
+    launches += 1
+    return h

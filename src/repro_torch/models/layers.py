@@ -1,0 +1,266 @@
+"""Transformer layers, as ``repro/models/layers.py``: norms, RoPE, the
+MLP, attention and its KV cache.
+
+Layout conventions (the reference's)
+  activations: (B, T, D);  q/k/v: (B, T, H, head_dim)
+  KV cache: {"k", "v": (B, Kv, S, hd), "pos": int32 (B,)}
+            (local attention is a ring buffer: position p lives in slot
+             p % S, S = min(window, cache_len))
+
+Full-sequence attention goes through
+:func:`repro_torch.kernels.flash_attention.flash_attention` (the CUDA
+kernel on CUDA tensors, its plain version on CPU tensors), which reads
+the kv heads in place of repeating them.  The reference's ``_mha``
+rounds the softmax weights to the activation dtype before the weighted
+sum; the kernel keeps them in float32, as the Pallas kernel does.  The
+one-token decode attends over the cache in plain PyTorch, as the
+reference does with einsums.
+
+Not ported (each raises ``NotImplementedError`` naming ROADMAP Queue 1
+item 11; RecurrentGemma uses none): the int8 KV cache (``kv_quant``),
+logit soft-capping, padded heads, cross attention.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.models.params import ParamSpec
+
+
+def check_ported(cfg: ArchConfig) -> None:
+    """Raise for the attention options the port does not run."""
+    for name, on in (("kv_quant", cfg.kv_quant),
+                     ("attn_logit_softcap", cfg.attn_logit_softcap > 0),
+                     ("pad_heads_to", cfg.pad_heads_to > cfg.num_heads)):
+        if on:
+            raise NotImplementedError(f"{cfg.name}: {name} is {NOT_PORTED}")
+
+
+# --------------------------------------------------------------------------- #
+# norms
+# --------------------------------------------------------------------------- #
+
+def norm_specs(cfg: ArchConfig, d: Optional[int] = None
+               ) -> Dict[str, ParamSpec]:
+    d = d or cfg.d_model
+    specs = {"scale": ParamSpec((d,), (None,), init="ones")}
+    if cfg.norm_type == "layernorm":
+        specs["bias"] = ParamSpec((d,), (None,), init="zeros")
+    return specs
+
+
+def apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    xf = x.float()
+    if cfg.norm_type == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    else:
+        ms = xf.square().mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# rotary position embeddings (half rotation, partial supported)
+# --------------------------------------------------------------------------- #
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               rotary_pct: float = 1.0) -> torch.Tensor:
+    """x: (B, T, H, hd); positions: (B, T) int.  cos and sin are cast to
+    x's dtype before the multiply, as the reference does."""
+    hd = x.shape[-1]
+    rot = int(hd * rotary_pct)
+    rot -= rot % 2
+    if rot == 0:
+        return x
+    x_rot, x_pass = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions.float()[..., None] * freqs               # (B,T,half)
+    cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+    sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    x1, x2 = x_rot[..., :half], x_rot[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([rotated, x_pass], dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# MLP (gated / plain)
+# --------------------------------------------------------------------------- #
+
+def mlp_specs(cfg: ArchConfig, d_ff: Optional[int] = None
+              ) -> Dict[str, ParamSpec]:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    specs: Dict[str, ParamSpec] = {
+        "w_up": ParamSpec((d, f), ("embed", "mlp")),
+        "w_down": ParamSpec((f, d), ("mlp", "embed")),
+    }
+    if cfg.gated_mlp:
+        specs["w_gate"] = ParamSpec((d, f), ("embed", "mlp"))
+    if cfg.mlp_bias:
+        specs["b_up"] = ParamSpec((f,), (None,), init="zeros")
+        specs["b_down"] = ParamSpec((d,), (None,), init="zeros")
+    return specs
+
+
+def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``jax.nn.gelu`` is the tanh form by default, ``F.gelu`` the exact
+    one: the reference's "gelu" and "gelu_tanh" are both tanh."""
+    if kind == "silu":
+        return F.silu(x)
+    if kind in ("gelu", "gelu_tanh"):
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(kind)
+
+
+def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    dt = x.dtype
+    h = x @ p["w_up"].to(dt)
+    if "b_up" in p:
+        h = h + p["b_up"].to(dt)
+    if cfg.gated_mlp:
+        h = _act(x @ p["w_gate"].to(dt), cfg.act) * h
+    else:
+        h = _act(h, cfg.act)
+    out = h @ p["w_down"].to(dt)
+    if "b_down" in p:
+        out = out + p["b_down"].to(dt)
+    return out
+
+
+# --------------------------------------------------------------------------- #
+# attention
+# --------------------------------------------------------------------------- #
+
+def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, hd = cfg.d_model, cfg.head_dim_
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    specs: Dict[str, ParamSpec] = {
+        "w_q": ParamSpec((d, hq, hd), ("embed", "heads", "head_dim")),
+        "w_k": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "w_v": ParamSpec((d, hkv, hd), ("embed", "kv_heads", "head_dim")),
+        "w_o": ParamSpec((hq, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        specs["b_q"] = ParamSpec((hq, hd), ("heads", "head_dim"), init="zeros")
+        specs["b_k"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"),
+                                 init="zeros")
+        specs["b_v"] = ParamSpec((hkv, hd), ("kv_heads", "head_dim"),
+                                 init="zeros")
+    return specs
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, T, D) @ (D, H, hd) -> (B, T, H, hd)."""
+    D, H, hd = w.shape
+    return (x @ w.to(x.dtype).reshape(D, H * hd)).unflatten(-1, (H, hd))
+
+
+def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig,
+                 positions: torch.Tensor, use_rope: bool
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    dt = x.dtype
+    q = _project(x, p["w_q"])
+    k = _project(x, p["w_k"])
+    v = _project(x, p["w_v"])
+    if cfg.qkv_bias:
+        q = q + p["b_q"].to(dt)
+        k = k + p["b_k"].to(dt)
+        v = v + p["b_v"].to(dt)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    q = q * (cfg.head_dim_ ** -0.5)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, hd) @ (H, hd, D) -> (B, T, D)."""
+    H, hd, D = w_o.shape
+    return out.flatten(-2) @ w_o.to(out.dtype).reshape(H * hd, D)
+
+
+def attention_from_qkv(q, k, v, *, causal: bool = True,
+                       window: int = 0) -> torch.Tensor:
+    """The softmax core over projected (B, T, H, hd) q, k, v: the kernel,
+    with q already scaled (``sm_scale = 1``).  Positions are 0..T-1, the
+    only positions full-sequence attention is called with."""
+    out = flash_attention(q.transpose(1, 2).contiguous(),
+                          k.transpose(1, 2).contiguous(),
+                          v.transpose(1, 2).contiguous(),
+                          causal=causal, window=window, sm_scale=1.0)
+    return out.transpose(1, 2)
+
+
+def attention(p, x: torch.Tensor, cfg: ArchConfig, *,
+              positions: torch.Tensor, causal: bool = True, window: int = 0,
+              use_rope: bool = True) -> torch.Tensor:
+    """Training / prefill attention over a whole sequence at positions
+    0..T-1 (the reference's callers pass no other)."""
+    check_ported(cfg)
+    q, k, v = _project_qkv(p, x, cfg, positions, use_rope)
+    out = attention_from_qkv(q, k, v, causal=causal, window=window)
+    return _out_proj(out, p["w_o"])
+
+
+# ----------------------------- decode path ---------------------------------- #
+
+def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
+                  window: int = 0, dtype=torch.bfloat16,
+                  device=None) -> Dict[str, torch.Tensor]:
+    """(B, Kv, S, hd) k and v, S = min(window, max_len) for a ring buffer,
+    and per-example positions (B,)."""
+    check_ported(cfg)
+    size = min(window, max_len) if window > 0 else max_len
+    shape = (batch, cfg.num_kv_heads, size, cfg.head_dim_)
+    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+            "k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
+                     *, window: int = 0, use_rope: bool = True
+                     ) -> Tuple[torch.Tensor, Dict]:
+    """One token against the cache.  x: (B, 1, D).  The new k, v are
+    written into ``cache`` in place, at slot ``pos % S`` (ring buffer) or
+    ``min(pos, S - 1)``, and ``pos`` advances; the returned cache is the
+    same dict."""
+    check_ported(cfg)
+    B, T, _ = x.shape
+    if T != 1:
+        raise ValueError("decode_attention processes one new token")
+    pos = cache["pos"]                                   # (B,) per example
+    q, k_new, v_new = _project_qkv(p, x, cfg, pos.reshape(B, 1), use_rope)
+    Kv, G, hd = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_
+    k, v = cache["k"], cache["v"]
+    S = k.shape[2]
+    slot = torch.remainder(pos, S) if window > 0 else \
+        torch.clamp_max(pos, S - 1)
+    rows = torch.arange(B, device=x.device)
+    k[rows, :, slot.long()] = k_new[:, 0].to(k.dtype)
+    v[rows, :, slot.long()] = v_new[:, 0].to(v.dtype)
+
+    qg = q.reshape(B, Kv, G, hd)
+    scores = torch.einsum("bkgh,bksh->bkgs", qg.float(), k.float())
+    slot_ids = torch.arange(S, dtype=torch.int32, device=x.device)
+    pb = pos.reshape(B, 1)
+    if window > 0:
+        # slot i holds global position p_i = pos - ((pos - i) mod S);
+        # valid slots cover (pos - S, pos].
+        valid = pb - torch.remainder(pb - slot_ids[None, :], S) >= 0
+    else:
+        valid = slot_ids[None, :] <= pb
+    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgs,bksh->bkgh", w, v).reshape(B, 1, cfg.num_heads,
+                                                        hd)
+    pos.add_(1)
+    return _out_proj(out, p["w_o"]), cache

@@ -1,20 +1,29 @@
 """Parameter specs and initialisation, as ``repro/models/params.py``.
 
-A model declares a nested ``{name: ParamSpec}`` tree; the port keeps its
-parameters as a nested dict of tensors with the same keys, so a tree of
-the JAX package's leaves (as numpy arrays) crosses over with
-:func:`params_from_numpy` and a checkpoint's tree-path keys rebuild from
-the spec tree (:mod:`repro_torch.train.checkpoint`).
+A model declares a nested ``{name: ParamSpec}`` tree (dicts, and lists
+for a model's segments); the port keeps its parameters as a tree of
+tensors with the same keys, so a tree of the JAX package's leaves (as
+numpy arrays) crosses over with :func:`params_from_numpy` and a
+checkpoint's tree-path keys rebuild from the spec tree
+(:mod:`repro_torch.train.checkpoint`).  A stacked segment carries a
+leading layer axis on every leaf (:func:`stack_specs`), as the
+reference's scanned segments do.
 
 :func:`init_params` draws the reference's initialisers from a
 ``torch.Generator``; its numbers are not JAX's, since the two generators
-differ for one seed.
+differ for one seed.  With a CUDA generator it draws on the card, leaf by
+leaf, each leaf in the dtype asked for, so a multi-GB model never passes
+through host memory as float32.
+
+Both builders take ``dtype``: one ``torch.dtype`` for every leaf, or a
+function of a leaf's key path that gives its dtype (the serving form,
+``repro_torch.models.transformer.serving_dtype``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,7 +35,7 @@ from repro_torch.device import resolve_device
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
-    init: str = "normal"          # normal | zeros | ones
+    init: str = "normal"          # normal | zeros | ones | rglru_lambda
     scale: float = 1.0            # stddev multiplier for "normal"
     dtype: Optional[str] = None   # override param dtype
 
@@ -35,58 +44,106 @@ class ParamSpec:
             raise ValueError(f"shape {self.shape} and axes {self.axes} "
                              "differ in length")
 
+    def stacked(self, n: int) -> "ParamSpec":
+        return dataclasses.replace(self, shape=(n,) + self.shape,
+                                   axes=("layer",) + self.axes)
+
+
+Path = Tuple[object, ...]
+DType = Union[torch.dtype, Callable[[Path], torch.dtype]]
+
 
 def _fan_in(shape: Tuple[int, ...]) -> int:
     return shape[0] if len(shape) <= 1 else int(np.prod(shape[:-1]))
 
 
-def leaves_with_paths(tree, path: Tuple[str, ...] = ()
-                      ) -> Iterator[Tuple[Tuple[str, ...], object]]:
-    """``(keys, leaf)`` for every leaf of a nested dict, keys sorted at each
-    level, which is the order JAX flattens a dict in."""
+def leaves_with_paths(tree, path: Path = ()) -> Iterator[Tuple[Path, object]]:
+    """``(keys, leaf)`` for every leaf of a tree of dicts and lists, dict
+    keys sorted at each level and list items in order, which is the order
+    JAX flattens such a tree in; a list item's key is its index."""
     if isinstance(tree, dict):
         for key in sorted(tree):
             yield from leaves_with_paths(tree[key], path + (key,))
+    elif isinstance(tree, list):
+        for i, val in enumerate(tree):
+            yield from leaves_with_paths(val, path + (i,))
     else:
         yield path, tree
 
 
-def map_tree(fn, tree, path: Tuple[str, ...] = ()):
-    """``fn(keys, leaf)`` applied to every leaf of a nested dict."""
+def map_tree(fn, tree, path: Path = ()):
+    """``fn(keys, leaf)`` applied to every leaf of a tree of dicts and
+    lists."""
     if isinstance(tree, dict):
         return {key: map_tree(fn, val, path + (key,))
                 for key, val in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, val, path + (i,)) for i, val in enumerate(tree)]
     return fn(path, tree)
 
 
-def _init_leaf(spec: ParamSpec, generator: torch.Generator,
+def stack_specs(specs, n: int):
+    """Prepend the layer axis of a stacked segment to every spec."""
+    return map_tree(lambda _, spec: spec.stacked(n), specs)
+
+
+def count_params(specs) -> int:
+    return sum(math.prod(spec.shape) for _, spec in leaves_with_paths(specs))
+
+
+def _leaf_dtype(dtype: Optional[DType], path: Path,
+                spec_dtype: Optional[str] = None) -> torch.dtype:
+    if dtype is None:
+        return getattr(torch, spec_dtype or "float32")
+    return dtype(path) if callable(dtype) else dtype
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator, dtype,
                device) -> torch.Tensor:
-    dtype = getattr(torch, spec.dtype or "float32")
+    """One leaf, drawn in float32 on the generator's device, then cast to
+    ``dtype`` and moved to ``device``."""
     if spec.init == "zeros":
         return torch.zeros(spec.shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=device)
-    if spec.init != "normal":
+    draw_on = generator.device
+    if spec.init == "rglru_lambda":
+        # Griffin's Lambda: a = exp(-c softplus(Lambda)) = sqrt(u), with u
+        # uniform in [0.9^2, 0.999^2], so a lies in [0.9, 0.999].
+        lo, hi = 0.9 ** 2, 0.999 ** 2
+        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+                       device=draw_on) * (hi - lo) + lo
+        draw = torch.log(torch.expm1(-0.5 * torch.log(u) / 8.0))
+    elif spec.init == "normal":
+        std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
+        draw = torch.randn(spec.shape, generator=generator,
+                           dtype=torch.float32, device=draw_on).mul_(std)
+    else:
         raise ValueError(f"init {spec.init!r} is not ported")
-    std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-    draw = torch.randn(spec.shape, generator=generator, dtype=torch.float32)
-    return (std * draw).to(dtype=dtype, device=device)
+    return draw.to(dtype=dtype, device=device)
 
 
-def init_params(specs, generator: torch.Generator, device=None) -> Dict:
+def init_params(specs, generator: torch.Generator, device=None,
+                dtype: Optional[DType] = None) -> Dict:
     """Fresh parameters for a spec tree, drawn leaf by leaf in JAX's
-    flattening order from ``generator`` (a CPU generator) and moved to
-    ``device`` (``None`` is the card)."""
+    flattening order from ``generator`` on its own device (a CUDA
+    generator draws on the card) and put on ``device`` (``None`` is the
+    card).  ``dtype``: see the module docstring; ``None`` is each spec's
+    dtype, else float32."""
     dev = resolve_device(device)
-    flat = {path: _init_leaf(spec, generator, dev)
+    flat = {path: _init_leaf(spec, generator,
+                             _leaf_dtype(dtype, path, spec.dtype), dev)
             for path, spec in leaves_with_paths(specs)}
     return map_tree(lambda path, _: flat[path], specs)
 
 
-def params_from_numpy(tree, device=None, dtype=torch.float32) -> Dict:
-    """A nested dict of numpy arrays (the JAX package's parameters, or a
-    checkpoint's leaves) as a nested dict of tensors on ``device``
-    (``None`` is the card)."""
+def params_from_numpy(tree, device=None,
+                      dtype: DType = torch.float32) -> Dict:
+    """A tree of numpy arrays (the JAX package's parameters, or a
+    checkpoint's leaves) as a tree of tensors on ``device`` (``None`` is
+    the card), each leaf in ``dtype`` (one dtype, or a function of the
+    leaf's key path)."""
     dev = resolve_device(device)
-    return map_tree(lambda _, a: torch.tensor(np.asarray(a), dtype=dtype,
-                                              device=dev), tree)
+    return map_tree(
+        lambda path, a: torch.tensor(np.asarray(a)).to(
+            dtype=_leaf_dtype(dtype, path), device=dev), tree)

@@ -1,0 +1,336 @@
+"""Model assembly, as ``repro/models/transformer.py``, for the configs
+the port runs: token embedding, segments of blocks, final norm, tied or
+separate LM head.
+
+Three modes share one block implementation:
+
+  * ``forward_train`` — full-sequence teacher forcing, forward only;
+    returns (logits, aux) with aux = 0 (no MoE is ported);
+  * ``prefill``       — full sequence + per-layer decode state;
+  * ``decode_step``   — one new token against the decode state.
+
+Segments with ``repeats > 1`` keep parameters and decode state stacked
+on a leading layer axis (the reference scans them); the port walks the
+layer axis in a Python loop.  ``decode_step`` updates the decode state
+in place, layer by layer, as the reference's write-back chain does
+(``transformer.py:447-460``), and returns the same object.
+
+Mixers ``attn``, ``local_attn`` and ``rglru`` and the ``dense`` MLP are
+ported; the others, cross attention, parallel blocks and the modality
+stubs raise ``NotImplementedError`` naming ROADMAP Queue 1 item 11.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.configs.base import NOT_PORTED, ArchConfig, BlockSpec, Segment
+from repro_torch.models import layers, rglru
+from repro_torch.models.params import ParamSpec, map_tree, stack_specs
+
+VOCAB_PAD_MULTIPLE = 512
+
+# Leaves the reference reads in float32 whatever the activation dtype
+# (norm scales, Lambda) or in both float32 and the activation dtype (the
+# RG-LRU gate projections: see repro_torch/models/rglru.py).  Every other
+# leaf is read only as ``astype(cfg.dtype)``.
+FLOAT32_LEAVES = frozenset({"scale", "bias", "lam", "w_a", "b_a", "w_x",
+                            "b_x"})
+
+
+def padded_vocab(cfg: ArchConfig) -> int:
+    v, m = cfg.vocab_size, VOCAB_PAD_MULTIPLE
+    return (v + m - 1) // m * m
+
+
+def serving_dtype(cfg: ArchConfig):
+    """The serving form of the parameters: a function of a leaf's key path
+    giving the dtype the reference computes that leaf in, for
+    ``init_params`` / ``params_from_numpy``.  Holding a leaf in it changes
+    no number of the serving path, and halves the bytes of the large
+    matrices in bfloat16."""
+    act = getattr(torch, cfg.dtype)
+
+    def dtype(path) -> torch.dtype:
+        return torch.float32 if path[-1] in FLOAT32_LEAVES else act
+    return dtype
+
+
+def _check_block(blk: BlockSpec, cfg: ArchConfig) -> None:
+    if blk.mixer not in ("attn", "local_attn", "rglru"):
+        raise NotImplementedError(f"mixer {blk.mixer!r} is {NOT_PORTED}")
+    if blk.mlp != "dense":
+        raise NotImplementedError(f"mlp {blk.mlp!r} is {NOT_PORTED}")
+    if blk.cross_attn or cfg.parallel_block:
+        raise NotImplementedError(f"{cfg.name}: cross attention and "
+                                  f"parallel blocks are {NOT_PORTED}")
+
+
+# --------------------------------------------------------------------------- #
+# specs
+# --------------------------------------------------------------------------- #
+
+def _block_specs(blk: BlockSpec, cfg: ArchConfig) -> Dict[str, Any]:
+    _check_block(blk, cfg)
+    if blk.mixer == "rglru":
+        mixer = rglru.rglru_specs(cfg)
+    else:
+        mixer = layers.attn_specs(cfg)
+    return {"norm1": layers.norm_specs(cfg), "mixer": mixer,
+            "norm2": layers.norm_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+
+
+def _tower_specs(plan: List[Segment], cfg: ArchConfig) -> List[Dict]:
+    out = []
+    for seg in plan:
+        seg_specs = {f"block{j}": _block_specs(blk, cfg)
+                     for j, blk in enumerate(seg.blocks)}
+        if seg.repeats > 1:
+            seg_specs = stack_specs(seg_specs, seg.repeats)
+        out.append(seg_specs)
+    return out
+
+
+def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
+    d, vp = cfg.d_model, padded_vocab(cfg)
+    specs: Dict[str, Any] = {
+        "embed": ParamSpec((vp, d), ("vocab", "embed"), scale=1.0),
+        "final_norm": layers.norm_specs(cfg),
+        "segments": _tower_specs(cfg.layer_plan(), cfg),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = ParamSpec((d, vp), ("embed", "vocab"))
+    return specs
+
+
+# --------------------------------------------------------------------------- #
+# blocks
+# --------------------------------------------------------------------------- #
+
+def _window(blk: BlockSpec, cfg: ArchConfig) -> int:
+    return cfg.sliding_window if blk.mixer == "local_attn" else 0
+
+
+def _finish_block(p, x, mix, cfg: ArchConfig):
+    x = x + mix
+    return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["norm2"], x,
+                                                            cfg), cfg)
+
+
+def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
+                causal: bool = True):
+    """Training forward of one block."""
+    _check_block(blk, cfg)
+    h = layers.apply_norm(p["norm1"], x, cfg)
+    if blk.mixer == "rglru":
+        mix = rglru.apply_rglru(p["mixer"], h, cfg)
+    else:
+        mix = layers.attention(p["mixer"], h, cfg, positions=positions,
+                               causal=causal, window=_window(blk, cfg),
+                               use_rope=cfg.use_rope)
+    return _finish_block(p, x, mix, cfg)
+
+
+def init_block_state(blk: BlockSpec, cfg: ArchConfig, batch: int,
+                     cache_len: int, dtype=torch.bfloat16,
+                     device=None) -> Dict:
+    _check_block(blk, cfg)
+    if blk.mixer == "rglru":
+        return rglru.rglru_decode_init(cfg, batch, device=device)
+    return layers.init_kv_cache(cfg, batch, cache_len,
+                                window=_window(blk, cfg), dtype=dtype,
+                                device=device)
+
+
+_rglru_prefill = rglru.rglru_prefill
+
+
+def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
+                        cache_len: int) -> Tuple[torch.Tensor, Dict]:
+    """Forward + decode-state extraction (serving prefill).  The k, v that
+    fill the cache are the ones the attention reads (the reference
+    projects them twice, to the same values)."""
+    _check_block(blk, cfg)
+    B, S, _ = x.shape
+    h = layers.apply_norm(p["norm1"], x, cfg)
+    if blk.mixer == "rglru":
+        mix, state = _rglru_prefill(p["mixer"], h, cfg)
+        return _finish_block(p, x, mix, cfg), state
+    window = _window(blk, cfg)
+    q, k, v = layers._project_qkv(p["mixer"], h, cfg, positions,
+                                  cfg.use_rope)
+    state = layers.init_kv_cache(cfg, B, cache_len, window=window,
+                                 dtype=x.dtype, device=x.device)
+    kc, vc = k.transpose(1, 2), v.transpose(1, 2)    # (B, Kv, S, hd)
+    W = state["k"].shape[2]
+    if window > 0 and S > W:
+        # ring write of the last W positions, split at the wrap point
+        slot0 = (S - W) % W
+        first = W - slot0
+        for buf, val in ((state["k"], kc[:, :, S - W:]),
+                         (state["v"], vc[:, :, S - W:])):
+            buf[:, :, slot0:] = val[:, :, :first]
+            buf[:, :, :W - first] = val[:, :, first:]
+    elif S > W:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache of {W}")
+    else:
+        state["k"][:, :, :S] = kc
+        state["v"][:, :, :S] = vc
+    state["pos"].fill_(S)
+    out = layers.attention_from_qkv(q, k, v, causal=True, window=window)
+    mix = layers._out_proj(out, p["mixer"]["w_o"])
+    return _finish_block(p, x, mix, cfg), state
+
+
+def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
+                       ) -> Tuple[torch.Tensor, Dict]:
+    _check_block(blk, cfg)
+    h = layers.apply_norm(p["norm1"], x, cfg)
+    if blk.mixer == "rglru":
+        mix, state = rglru.apply_rglru_decode(p["mixer"], h, cfg, state)
+    else:
+        mix, state = layers.decode_attention(p["mixer"], h, cfg, state,
+                                             window=_window(blk, cfg),
+                                             use_rope=cfg.use_rope)
+    return _finish_block(p, x, mix, cfg), state
+
+
+# --------------------------------------------------------------------------- #
+# towers
+# --------------------------------------------------------------------------- #
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked segment's tree (views)."""
+    return map_tree(lambda _, t: t[i], tree)
+
+
+def _segment_layers(seg: Segment, seg_p):
+    if seg.repeats > 1:
+        return [_layer(seg_p, i) for i in range(seg.repeats)]
+    return [seg_p]
+
+
+def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
+                     causal: bool = True):
+    for seg, seg_p in zip(plan, segments_p):
+        for layer_p in _segment_layers(seg, seg_p):
+            for j, blk in enumerate(seg.blocks):
+                x = apply_block(blk, layer_p[f"block{j}"], x, cfg,
+                                positions=positions, causal=causal)
+    return x
+
+
+def _stack(trees: List):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _run_tower_prefill(segments_p, plan, x, cfg, positions, cache_len):
+    states: List[Any] = []
+    for seg, seg_p in zip(plan, segments_p):
+        reps = []
+        for layer_p in _segment_layers(seg, seg_p):
+            sts = {}
+            for j, blk in enumerate(seg.blocks):
+                x, sts[f"block{j}"] = apply_block_prefill(
+                    blk, layer_p[f"block{j}"], x, cfg, positions=positions,
+                    cache_len=cache_len)
+            reps.append(sts)
+        states.append(_stack(reps) if seg.repeats > 1 else reps[0])
+    return x, states
+
+
+def _write_back(old: Dict, new: Dict) -> None:
+    """Copy a block's new decode state into its buffers (views into the
+    stacked state), where the block did not update them in place."""
+    for key, val in new.items():
+        if val is not old[key]:
+            old[key].copy_(val)
+
+
+def _run_tower_decode(segments_p, plan, x, cfg, states):
+    for seg, seg_p, seg_st in zip(plan, segments_p, states):
+        layer_sts = _segment_layers(seg, seg_st)
+        for layer_p, layer_st in zip(_segment_layers(seg, seg_p), layer_sts):
+            for j, blk in enumerate(seg.blocks):
+                st = layer_st[f"block{j}"]
+                x, new = apply_block_decode(blk, layer_p[f"block{j}"], x,
+                                            cfg, st)
+                _write_back(st, new)
+    return x, states
+
+
+# --------------------------------------------------------------------------- #
+# entry points
+# --------------------------------------------------------------------------- #
+
+def _embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    if not cfg.use_rope or cfg.family in ("vlm", "audio"):
+        raise NotImplementedError(f"{cfg.name}: absolute positions and "
+                                  f"modality inputs are {NOT_PORTED}")
+    dt = getattr(torch, cfg.dtype)
+    x = params["embed"][batch["tokens"]].to(dt)
+    if cfg.family == "hybrid":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)  # gemma scale
+    return x
+
+
+def _lm_logits(params, x, cfg: ArchConfig) -> torch.Tensor:
+    x = layers.apply_norm(params["final_norm"], x, cfg)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
+    return x @ params["lm_head"].to(x.dtype)
+
+
+def _positions(B: int, T: int, device) -> torch.Tensor:
+    return torch.arange(T, dtype=torch.int32,
+                        device=device)[None].expand(B, T)
+
+
+def forward_train(params, batch: Dict, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher forcing, forward only.  Returns (logits (B,T,Vp), aux)."""
+    x = _embed_inputs(params, batch, cfg)
+    B, T, _ = x.shape
+    x = _run_tower_train(params["segments"], cfg.layer_plan(), x, cfg,
+                         _positions(B, T, x.device))
+    return _lm_logits(params, x, cfg), torch.zeros((), device=x.device)
+
+
+def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
+                      dtype=torch.bfloat16, device=None) -> List:
+    """Zero decode state; stacked segments get a leading layer axis."""
+    states = []
+    for seg in cfg.layer_plan():
+        seg_states = {}
+        for j, blk in enumerate(seg.blocks):
+            st = init_block_state(blk, cfg, batch, cache_len, dtype, device)
+            if seg.repeats > 1:
+                st = {k: v[None].repeat((seg.repeats,) + (1,) * v.dim())
+                      for k, v in st.items()}
+            seg_states[f"block{j}"] = st
+        states.append(seg_states)
+    return states
+
+
+def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int
+            ) -> Tuple[torch.Tensor, List]:
+    """Full-sequence forward + decode-state construction.
+    Returns (last-position logits (B, Vp), states)."""
+    x = _embed_inputs(params, batch, cfg)
+    B, T, _ = x.shape
+    x, states = _run_tower_prefill(params["segments"], cfg.layer_plan(), x,
+                                   cfg, _positions(B, T, x.device), cache_len)
+    return _lm_logits(params, x[:, -1:], cfg)[:, 0], states
+
+
+def decode_step(params, tokens: torch.Tensor, states: List, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, List]:
+    """tokens: (B, 1) -> (logits (B, Vp), states updated in place)."""
+    x = _embed_inputs(params, {"tokens": tokens}, cfg)
+    x, states = _run_tower_decode(params["segments"], cfg.layer_plan(), x,
+                                  cfg, states)
+    return _lm_logits(params, x, cfg)[:, 0], states

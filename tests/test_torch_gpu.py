@@ -1,5 +1,5 @@
-"""PyTorch port on the card: the CUDA kernels, the lane engine and the
-forecaster on CUDA.
+"""PyTorch port on the card: the CUDA kernels, the lane engine, the
+forecaster and the RecurrentGemma serving path on CUDA.
 
 Every test here is marked ``gpu`` and skips itself without a CUDA card
 (the kernels have no CPU mode).  On the card::
@@ -18,7 +18,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.forecast import features, model
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import mlstm_chunkwise as mlstm
+from repro_torch.kernels import rglru_scan as rglru
 from repro_torch.manyworld import lanes, select
 from repro_torch.search.runner import CellSpec, _get_trace, run_cells
 
@@ -212,3 +214,160 @@ def test_forecaster_reproduces_golden_fixture_on_cuda(cuda):
         seq.append(fc.predict())
     np.testing.assert_allclose(np.asarray(seq), want["per_bin"], rtol=1e-4,
                                atol=1e-6)
+
+
+# (B, T, R, input dtype, output dtype): T = 1, the serving shape (float32
+# coefficients, bfloat16 out), T and R not multiples of any block, B > 1,
+# bfloat16 inputs.
+RGLRU_CASES = (
+    (1, 1, 4096, "float32", "float32"),
+    (1, 3072, 4096, "float32", "bfloat16"),
+    (3, 517, 100, "float32", "float32"),
+    (2, 33, 4096, "bfloat16", "bfloat16"),
+    (2, 200, 257, "bfloat16", "float32"),
+    (1, 15, 31, "float32", "bfloat16"),
+)
+# The kernel chains its time chunks' carries in another order than the
+# sequential walk (float32 rounding); a bfloat16 output may then round
+# one ulp apart.
+RGLRU_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
+             "bfloat16": dict(atol=1e-2, rtol=1e-2)}
+
+
+def _rglru_inputs(case, device):
+    B, T, R, dtype, _ = case
+    rng = np.random.default_rng(B * 7919 + T * 31 + R)
+    a = rng.uniform(0.5, 0.999, (B, T, R))
+    b = 0.1 * rng.standard_normal((B, T, R))
+    return [torch.tensor(x, dtype=getattr(torch, dtype), device=device)
+            for x in (a, b)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", RGLRU_CASES)
+def test_rglru_kernel_matches_plain_on_cuda(cuda, case):
+    a, b = _rglru_inputs(case, cuda)
+    out_dtype = getattr(torch, case[4])
+    before = rglru.launches
+    h = rglru.rglru_scan(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert rglru.launches == before + 1
+    want = rglru.rglru_scan_plain(a, b, out_dtype=out_dtype)
+    assert h.dtype == want.dtype == out_dtype
+    torch.testing.assert_close(h.float(), want.float(), **RGLRU_TOL[case[4]])
+
+
+# (B, Hq, Hkv, T, S, hd, causal, window, dtype): tests/test_kernels.py's
+# sweep (MHA, GQA, MQA with hd 256), a window, a window wider than T with
+# T not a multiple of the block, T = 1, hd not a power of two, a
+# non-causal call, and the serving shape cut to T = 1100.
+FLASH_CASES = (
+    (1, 1, 1, 128, 128, 64, True, 0, "float32"),
+    (2, 4, 4, 256, 256, 64, True, 0, "bfloat16"),
+    (2, 8, 2, 256, 256, 128, True, 0, "float32"),
+    (1, 6, 1, 384, 384, 256, True, 0, "bfloat16"),
+    (2, 2, 2, 256, 256, 64, True, 64, "float32"),
+    (1, 2, 1, 100, 100, 128, True, 300, "float32"),
+    (1, 4, 1, 1, 1, 256, True, 16, "bfloat16"),
+    (2, 3, 1, 77, 77, 48, True, 0, "float32"),
+    (1, 2, 2, 130, 130, 64, False, 0, "float32"),
+    (1, 16, 1, 1100, 1100, 256, True, 512, "bfloat16"),
+)
+# tests/test_kernels.py's tolerances for the Pallas kernel against its
+# oracle: float32 sums in another order, bfloat16 outputs rounded.
+FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
+             "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+
+
+def _flash_inputs(case, device):
+    B, Hq, Hkv, T, S, hd, _, _, dtype = case
+    rng = np.random.default_rng(B + Hq * 10 + T + hd)
+    return [torch.tensor(rng.standard_normal(shape),
+                         dtype=getattr(torch, dtype), device=device)
+            for shape in ((B, Hq, T, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_cuda(cuda, case):
+    q, k, v = _flash_inputs(case, cuda)
+    causal, window, dtype = case[6:]
+    before = flash.launches
+    out = flash.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == want.dtype == q.dtype
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    a, b = _rglru_inputs((1, 4, 8, "float32", "float32"), cuda)
+    with pytest.raises(TypeError):
+        rglru.rglru_scan(a.half(), b.half())
+    with pytest.raises(ValueError, match="device"):
+        rglru.rglru_scan(a, b.cpu())
+    q, k, v = _flash_inputs((1, 2, 1, 8, 8, 64, True, 0, "float32"), cuda)
+    with pytest.raises(ValueError, match="hd <= 256"):
+        big = torch.zeros((1, 2, 8, 320), device=cuda)
+        flash.flash_attention(big, big[:, :1], big[:, :1])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3),
+                              k, v)
+    with pytest.raises(TypeError):
+        flash.flash_attention(q.bfloat16(), k, v)
+
+
+SERVE_GOLDEN = Path(__file__).resolve().parent / "data" / "torch_serve_golden"
+
+
+@pytest.mark.gpu
+def test_serve_golden_fixture_on_cuda(cuda):
+    """The 8-layer float32 RecurrentGemma twin of
+    ``tests/data/torch_serve_golden`` on the card, through both kernels:
+    JAX's prefill and decode logits within ``atol 1e-4, rtol 1e-3`` and
+    its greedy engine tokens exactly (tests/test_torch_serve.py makes the
+    fixture; this file imports no JAX)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import map_tree, params_from_numpy
+    from repro_torch.serve import engine as serve
+    with np.load(SERVE_GOLDEN / "expected.npz", allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", tiny=True),
+                              num_layers=8, dtype="float32")
+    tree = map_tree(lambda path, _: fx["param/" + "/".join(map(str, path))],
+                    tf.model_specs(cfg))
+    params = params_from_numpy(tree, dtype=tf.serving_dtype(cfg))
+    before = (flash.launches, rglru.launches)
+    tokens = torch.from_numpy(fx["tokens"]).long().to(cuda)
+    lg, states = tf.prefill(params, {"tokens": tokens[:, :13]}, cfg, 32)
+    np.testing.assert_allclose(lg.cpu().numpy(), fx["prefill_logits"],
+                               atol=1e-4, rtol=1e-3)
+    for s in range(5):
+        lg, states = tf.decode_step(params, tokens[:, 13 + s:14 + s], states,
+                                    cfg)
+        np.testing.assert_allclose(lg.cpu().numpy(), fx["decode_logits"][s],
+                                   atol=1e-4, rtol=1e-3)
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=2, cache_len=40))
+    prompts = np.split(fx["engine_prompts"], np.cumsum([13, 4, 21, 9])[:4])
+    reqs = [serve.Request(uid=i, prompt=p, max_new_tokens=new,
+                          submitted_at=at)
+            for i, (p, new, at) in enumerate(zip(
+                prompts, (6, 8, 5, 7, 4), (0.0, 0.0, 1.0, 2.5, 2.5)))]
+    now = [0.0]
+
+    def clock():
+        now[0] += 0.25
+        return now[0]
+
+    def sleep(dt):
+        now[0] += dt
+
+    serve.run_server(eng, reqs, log=lambda s: None, clock=clock, sleep=sleep)
+    for r, want in zip(reqs, fx["engine_tokens"]):
+        assert r.tokens == [int(t) for t in want if t >= 0]
+    assert flash.launches > before[0] and rglru.launches > before[1]
