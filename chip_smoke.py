@@ -42,10 +42,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    flash-crowd trace's bins, and the val log-MSE of the mLSTM, EWMA and
    AR(1) forecasters;
 9. flash   — the flash-attention kernel against its plain version on
-   edge shapes and at the serving shape (B 1, 16 query heads, 1 kv head,
-   T 3072, hd 256, window 2048, bfloat16), its device time there beside
-   its bound, the plain version's time and ``scaled_dot_product_attention``
-   with the same mask as a yardstick;
+   edge shapes (bfloat16: the tensor-core kernel's tiles, windows, GQA,
+   padded hd) and at the serving shape (B 1, 16 query heads, 1 kv head,
+   T 3072, hd 256, window 2048, bfloat16); device times at T 3072 and
+   1674 of the bf16 kernel, the float32 kernel, the plain version and
+   ``scaled_dot_product_attention`` with the same mask as a yardstick,
+   each with its TFLOP/s and share of the bound; the kernel's registers
+   and spills from the ptxas log;
 10. rglru  — the RG-LRU scan kernel against its plain version on edge
    shapes and at the serving shape (B 1, T 3072, R 4096, float32 in,
    bfloat16 out), its device time there beside its bound and the plain
@@ -810,7 +813,12 @@ def phase_rglru(torch, np, dev) -> dict:
 # then tests/test_kernels.py's sweep (MHA, GQA, MQA with hd 256), a
 # window, a window wider than T with T not a multiple of the block,
 # T = 1, hd 48 (zero-padded in the kernel), a non-causal call, and the
-# serving shape in float32.
+# serving shape in float32; then the bfloat16 tensor-core kernel's
+# edges: T and S not multiples of its 128-query or 64-key tiles (77,
+# 130, 1000, 2990 at the serving heads), a window edge inside a tile,
+# GQA 8/2 at hd 128, hd 48, 80, 32 and 33 zero-padded (33: the copy for
+# hd not a multiple of 8), S > T with a window and no causal mask, and
+# T = S = 1 without a causal mask.
 FLASH_CASES = (
     (1, 16, 1, 3072, 3072, 256, True, 2048, "bfloat16"),
     (1, 1, 1, 128, 128, 64, True, 0, "float32"),
@@ -825,7 +833,18 @@ FLASH_CASES = (
     (2, 3, 1, 77, 77, 48, True, 0, "float32"),
     (1, 2, 2, 130, 130, 64, False, 0, "float32"),
     (1, 16, 1, 3072, 3072, 256, True, 2048, "float32"),
+    (2, 3, 1, 77, 77, 48, True, 0, "bfloat16"),
+    (1, 2, 2, 130, 130, 64, False, 0, "bfloat16"),
+    (1, 4, 2, 1000, 1000, 80, True, 0, "bfloat16"),
+    (1, 16, 1, 2990, 2990, 256, True, 2048, "bfloat16"),
+    (1, 4, 1, 384, 384, 256, True, 100, "bfloat16"),
+    (1, 2, 1, 50, 90, 32, False, 20, "bfloat16"),
+    (1, 2, 1, 70, 70, 33, True, 0, "bfloat16"),
+    (1, 3, 1, 1, 1, 64, False, 0, "bfloat16"),
 )
+# Serving-path lengths timed in phase 9: the longest prompt's bucket and
+# a mid-length prompt of the serve cell.
+FLASH_TIMED_T = (3072, 1674)
 # tests/test_kernels.py's tolerances for the Pallas kernel against its
 # oracle: float32 sums in another order, bfloat16 outputs rounded.
 FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
@@ -840,8 +859,39 @@ def _flash_inputs(torch, np, case, dev):
             for shape in ((B, Hq, T, hd), (B, Hkv, S, hd), (B, Hkv, S, hd))]
 
 
+def _ptxas_by_kernel(log: str) -> dict:
+    """{"<dtype>/hd<HD>": {registers, spill_stores, spill_loads}} of the
+    flash kernel's instantiations, from its ``nvcc -Xptxas -v`` log."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            hit = re.search(r"flash_attention_(bf16|f32)ILi(\d+)", ln)
+            name = f"{hit.group(1)}/hd{hit.group(2)}" if hit else None
+            if name:
+                out[name] = {}
+        elif name and "spill stores" in ln:
+            st, ld = re.findall(r"(\d+) bytes spill", ln)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   ln).group(1))
+    return out
+
+
+def _flash_work(B, Hq, Hkv, T, S, hd, mask):
+    """(operations, bytes, bound ms, bound_by) of one bf16 call."""
+    ops = B * Hq * int(mask.sum()) * 4 * hd  # q.k and p.v, 2 each per elt
+    nbytes = 2 * (2 * B * Hq * T * hd + 2 * B * Hkv * S * hd)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    return (ops, nbytes, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
 def phase_flash(torch, np, dev) -> dict:
     import torch.nn.functional as F
+    from repro_torch import _build
     from repro_torch.kernels import flash_attention as flash
     results = {}
     for case in FLASH_CASES:
@@ -861,36 +911,61 @@ def phase_flash(torch, np, dev) -> dict:
             emit({"phase": "flash", "cases": results})
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version on {name}")
-    B, Hq, Hkv, T, S, hd, causal, window, _ = FLASH_CASES[0]
-    q, k, v = _flash_inputs(torch, np, FLASH_CASES[0], dev)
-    mask = flash._mask(T, S, causal, window, dev)
-    calls = {
-        "kernel": lambda: flash.flash_attention(q, k, v, causal=causal,
-                                                window=window),
-        "plain": lambda: flash.flash_attention_plain(q, k, v, causal=causal,
-                                                     window=window),
-        "library": lambda: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask, enable_gqa=True),
-    }
-    timed = {k_: _timed_ms(torch, fn, 20, 3) for k_, fn in calls.items()}
-    device_ms = {k_: v["ms"] for k_, v in timed.items()}
-    pairs = int(mask.sum())                 # visible (query, key) pairs
-    ops = B * Hq * pairs * 4 * hd           # q.k and p.v, 2 each per elt
-    nbytes = 2 * (2 * B * Hq * T * hd + 2 * B * Hkv * S * hd)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / BF16_OPS_PER_S * 1e3
+    # Device time at the serving shape and a mid-length prompt: the bf16
+    # tensor-core kernel, the float32 SIMT kernel on the same values in
+    # float32, the plain version and SDPA with the same mask (the
+    # yardstick); operations and share of the bf16 bound for each.
+    B, Hq, Hkv, _, _, hd, causal, window, _ = FLASH_CASES[0]
+    by_t = {}
+    for T in FLASH_TIMED_T:
+        q, k, v = _flash_inputs(torch, np, (B, Hq, Hkv, T, T, hd, causal,
+                                            window, "bfloat16"), dev)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        mask = flash._mask(T, T, causal, window, dev)
+        calls = {
+            "kernel": lambda: flash.flash_attention(
+                q, k, v, causal=causal, window=window),
+            "kernel_f32": lambda: flash.flash_attention(
+                q32, k32, v32, causal=causal, window=window),
+            "plain": lambda: flash.flash_attention_plain(
+                q, k, v, causal=causal, window=window),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, enable_gqa=True),
+        }
+        timed = {k_: _timed_ms(torch, fn, 20, 3) for k_, fn in calls.items()}
+        ops, nbytes, bound_ms, bound_by = _flash_work(B, Hq, Hkv, T, T, hd,
+                                                      mask)
+        by_t[T] = {
+            "ms": {k_: v_["ms"] for k_, v_ in timed.items()},
+            "tflops": {k_: ops / (v_["ms"] * 1e-3) / 1e12
+                       for k_, v_ in timed.items()},
+            "share_of_bound": {k_: bound_ms / v_["ms"]
+                               for k_, v_ in timed.items()},
+            "timing": timed, "visible_pairs_per_head": int(mask.sum()),
+            "flops": ops, "bytes": nbytes, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        del q32, k32, v32
+    ptxas = _ptxas_by_kernel(
+        _build.build_all(["flash_attention"])["flash_attention"]["log"])
+    serve = by_t[FLASH_TIMED_T[0]]
     line = {"phase": "flash", "cases": results, "tolerance": FLASH_TOL,
-            "shape": [B, Hq, Hkv, T, S, hd], "window": window,
-            "kernel_ms": device_ms["kernel"], "plain_ms": device_ms["plain"],
-            "library_ms": device_ms["library"], "timing": timed,
+            "shape": [B, Hq, Hkv, FLASH_TIMED_T[0], FLASH_TIMED_T[0], hd],
+            "window": window,
+            "kernel_ms": serve["ms"]["kernel"],
+            "kernel_f32_ms": serve["ms"]["kernel_f32"],
+            "plain_ms": serve["ms"]["plain"],
+            "library_ms": serve["ms"]["library"],
             "library_call": "F.scaled_dot_product_attention(q, k, v, "
                             "attn_mask=bool mask, enable_gqa=True)",
-            "visible_pairs_per_head": pairs, "flops": ops, "bytes": nbytes,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "kernel_tflops": ops / (device_ms["kernel"] * 1e-3) / 1e12,
-            "max_abs_err": max(r["max_abs_err"] for n, r in results.items()
-                               if n.endswith("float32")),
+            "kernel_not_slower_than_library":
+                serve["ms"]["kernel"] <= serve["ms"]["library"],
+            "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
+            "kernel_tflops": serve["tflops"]["kernel"],
+            "by_T": by_t, "ptxas": ptxas,
+            # the path's call (the serving shape), then the worst by dtype
+            "max_abs_err": next(iter(results.values()))["max_abs_err"],
+            "max_abs_err_f32": max(r["max_abs_err"] for n, r in
+                                   results.items() if n.endswith("float32")),
             "max_abs_err_bf16": max(r["max_abs_err"] for n, r in
                                     results.items()
                                     if n.endswith("bfloat16"))}
@@ -978,10 +1053,10 @@ SERVE_REQUESTS = 16
 SERVE_NEW_TOKENS = 64
 SERVE_SLOTS = 8
 SERVE_CACHE = 4096
-# Decode against teacher forcing at full width in bfloat16: the kernel
-# keeps the softmax weights in float32 where decode rounds them to
-# bfloat16, and decode carries the RG-LRU state in float32 where the
-# prefill scan rounds it, over 38 layers.
+# Decode against teacher forcing at full width in bfloat16: the prefill
+# kernel and decode sum over keys in other orders and tiles, and decode
+# carries the RG-LRU state in float32 where the prefill scan rounds it,
+# over 38 layers.
 SERVE_CONSISTENCY_REL = 0.1
 
 

@@ -11,11 +11,17 @@ against k, v (B, Hkv, S, hd), query head h reading kv head
 ``h // (Hq // Hkv)``, logits ``sm_scale * q.k`` in float32 (default
 ``sm_scale = hd ** -0.5``), key j visible to query i when ``j <= i``
 (causal) and ``j > i - window`` (window > 0) on global indices, hidden
-logits at ``NEG_INF = -2**30``, a float32 softmax and a float32
-weighted sum of v, returned in q's dtype.  Any T and S; hd <= 256 in the
-kernel.  Every query row must see at least one key (it does under a
-causal mask with ``S >= T``, the model's only call): a row that sees
-none is 0 in the kernel and the mean of v in the oracle.
+logits at ``NEG_INF = -2**30``, a float32 softmax and a weighted sum of
+v accumulated in float32, returned in q's dtype.  Any T and S; hd <= 256
+in the kernel.  Every query row must see at least one key (it does under
+a causal mask with ``S >= T``, the model's only call).
+
+The plain version keeps the softmax weights in float32, as the oracle
+does, and so does the kernel on float32 inputs.  On bfloat16 inputs the
+kernel runs both products on the tensor cores and rounds the weights to
+bfloat16 for the weighted sum, as the model's reference ``_mha`` does;
+``tests/test_torch_flash_attention.py`` emulates that arithmetic on the
+CPU and holds it to the oracle at the bfloat16 tolerance.
 
 ``launches`` counts kernel launches, so a run can show that it went
 through the kernel.
@@ -23,6 +29,7 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -74,7 +81,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _flash_attention_cuda(q, k, v, causal, window, sm_scale)
 
 
+@functools.cache
 def _kernel():
+    """The kernel's C entry point, built, loaded and typed once per
+    process."""
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_int64,

@@ -12,9 +12,10 @@ Full-sequence attention goes through
 kernel on CUDA tensors, its plain version on CPU tensors), which reads
 the kv heads in place of repeating them.  The reference's ``_mha``
 rounds the softmax weights to the activation dtype before the weighted
-sum; the kernel keeps them in float32, as the Pallas kernel does.  The
-one-token decode attends over the cache in plain PyTorch, as the
-reference does with einsums.
+sum; so does the kernel in bfloat16 (it feeds them to the tensor cores
+as bf16), while in float32, and in the plain version, they stay float32
+as in the Pallas kernel.  The one-token decode attends over the cache in
+plain PyTorch, as the reference does with einsums.
 
 Not ported (each raises ``NotImplementedError`` naming ROADMAP Queue 1
 item 11; RecurrentGemma uses none): the int8 KV cache (``kv_quant``),

@@ -9,7 +9,9 @@ kernel itself runs only on the card, ``tests/test_torch_gpu.py``).
 Tolerances: the JAX kernel test's (``tests/test_kernels.py:22``),
 float32 ``atol 2e-5, rtol 2e-5`` and bfloat16 ``2e-2`` (sums in another
 order, outputs rounded); the attention layer in float32 ``atol 1e-4``
-(projections and RoPE around the core).
+(projections and RoPE around the core).  An emulation of the bfloat16
+kernel's arithmetic (weights rounded to bf16 for p.v) is held to the
+oracle and the Pallas kernel at the bfloat16 tolerance.
 """
 import dataclasses
 
@@ -103,6 +105,58 @@ def test_plain_matches_oracle_at_ragged_shapes(case):
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
 
 
+def _bf16_kernel_emulation(q, k, v, *, causal, window, block_k=64):
+    """The bfloat16 CUDA kernel's arithmetic in plain PyTorch (float32):
+    per tile of 64 keys, logits from the bf16 q and k scaled by
+    ``sm_scale * log2(e)`` (one float32 product, as the kernel forms
+    it), hidden logits at -2**30, a base-2 online softmax with float32
+    running max and sum, the weights rounded to bf16 after the running
+    max for p.v (float32 sums), l over the unrounded weights, and
+    ``o = acc / max(l, 1e-30)`` in q's dtype."""
+    B, Hq, T, hd = q.shape
+    _, Hkv, S, _ = k.shape
+    c = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(
+        np.log2(np.e), dtype=torch.float32)
+    qf = q.float().reshape(B, Hkv, Hq // Hkv, T, hd)
+    kf, vf = k.float()[:, :, None], v.float()[:, :, None]
+    mask = port_flash._mask(T, S, causal, window, q.device)
+    m = torch.full((B, Hkv, Hq // Hkv, T), port_flash.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    for kt in range(0, S, block_k):
+        x = (qf @ kf[..., kt:kt + block_k, :].transpose(-1, -2)) * c
+        x = x.masked_fill(~mask[:, kt:kt + block_k], port_flash.NEG_INF)
+        m_new = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new[..., None])
+        l = alpha * l + p.sum(-1)
+        acc = alpha[..., None] * acc + (
+            p.bfloat16().float() @ vf[..., kt:kt + block_k, :])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(B, Hq, T, hd).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", SWEEP + [(1, 8, 1, 384, 256, True, 100)])
+def test_bf16_kernel_numerics_match_oracle_and_pallas(case):
+    """Rounding the softmax weights to bf16 per key tile (and exp2 on
+    prescaled logits), as the bf16 kernel does, stays within the bf16
+    tolerance of the float32-weight oracle and the Pallas kernel; the
+    last case is the serving path's MQA at hd 256 with a window edge
+    inside a tile."""
+    B, Hq, Hkv, T, hd, causal, window = case
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(B, Hq, Hkv, T, T, hd, seed=7),
+                                       "bfloat16")
+    got = _bf16_kernel_emulation(tq, tk, tv, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == tq.shape
+    want = ref_kernels.attention_ref(jq, jk, jv, causal=causal,
+                                     window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["bfloat16"])
+    pallas = pallas_flash(jq, jk, jv, causal=causal, window=window,
+                          interpret=True)
+    np.testing.assert_allclose(_f32(got), _f32(pallas), **TOL["bfloat16"])
+
+
 def test_cpu_tensors_take_the_plain_version():
     (_, _, _), (tq, tk, tv) = _both(_qkv(1, 2, 1, 16, 16, 8), "float32")
     before = port_flash.launches
@@ -144,8 +198,9 @@ def test_attention_layer_matches_jax_float32(window):
 
 def test_attention_layer_matches_jax_bfloat16():
     """bfloat16: the reference rounds the softmax weights to bfloat16
-    before the weighted sum, the kernel does not; outputs within 2 % of
-    the output's scale."""
+    before the weighted sum, the plain version that the CPU runs does not
+    (the bf16 CUDA kernel does); outputs within 2 % of the output's
+    scale."""
     ref_cfg, cfg, tree, p, x, pos = _attn_setup("bfloat16", seed=1)
     want = _f32(ref_layers.attention(
         tree, jnp.asarray(x).astype(jnp.bfloat16), ref_cfg,

@@ -260,7 +260,12 @@ def test_rglru_kernel_matches_plain_on_cuda(cuda, case):
 # (B, Hq, Hkv, T, S, hd, causal, window, dtype): tests/test_kernels.py's
 # sweep (MHA, GQA, MQA with hd 256), a window, a window wider than T with
 # T not a multiple of the block, T = 1, hd not a power of two, a
-# non-causal call, and the serving shape cut to T = 1100.
+# non-causal call, and the serving shape cut to T = 1100; then the
+# bfloat16 tensor-core kernel's edges: T and S not multiples of its
+# 128-query or 64-key tiles (77, 130, 1000, 2990 at the serving heads),
+# a window edge inside a tile, GQA 8/2 at hd 128, hd 48, 80, 32 and 33
+# zero-padded (33: the copy for hd not a multiple of 8), S > T with a
+# window and no causal mask, T = S = 1 and non-causal calls.
 FLASH_CASES = (
     (1, 1, 1, 128, 128, 64, True, 0, "float32"),
     (2, 4, 4, 256, 256, 64, True, 0, "bfloat16"),
@@ -272,6 +277,15 @@ FLASH_CASES = (
     (2, 3, 1, 77, 77, 48, True, 0, "float32"),
     (1, 2, 2, 130, 130, 64, False, 0, "float32"),
     (1, 16, 1, 1100, 1100, 256, True, 512, "bfloat16"),
+    (2, 3, 1, 77, 77, 48, True, 0, "bfloat16"),
+    (1, 2, 2, 130, 130, 64, False, 0, "bfloat16"),
+    (1, 4, 2, 1000, 1000, 80, True, 0, "bfloat16"),
+    (1, 16, 1, 2990, 2990, 256, True, 2048, "bfloat16"),
+    (1, 4, 1, 384, 384, 256, True, 100, "bfloat16"),
+    (2, 8, 2, 256, 256, 128, True, 0, "bfloat16"),
+    (1, 2, 1, 50, 90, 32, False, 20, "bfloat16"),
+    (1, 2, 1, 70, 70, 33, True, 0, "bfloat16"),
+    (1, 3, 1, 1, 1, 64, False, 0, "bfloat16"),
 )
 # tests/test_kernels.py's tolerances for the Pallas kernel against its
 # oracle: float32 sums in another order, bfloat16 outputs rounded.
