@@ -14,15 +14,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    card at the lane path's shape and at edge shapes (``torch.equal``),
    and its device time over many launches beside its bound, the plain
    version's time and a library yardstick;
-4. golden  — the lane program on the card over every batch of
-   ``tests/data/torch_lane_golden.npz`` (outputs of the JAX reference),
-   bit for bit, after rebuilding the fixture's input columns with the
-   port's own generators;
+4. golden  — the lane-program kernel (one launch a batch) and the
+   lockstep program with the select kernel, on the card, over every
+   batch of ``tests/data/torch_lane_golden.npz`` (outputs of the JAX
+   reference), bit for bit, after rebuilding the fixture's input columns
+   with the port's own generators;
 5. main    — ``run_cells(cells, workers="lanes")`` on 2048 heavy-tail
    cells (family default 2000 jobs, 64 m2.small nodes, best-fit,
-   void/void): lanes/s, cycles, host syncs, kernel launches, peak device
-   memory, a profiled window of the cycle loop; then the same batch with
-   the plain select, whose outputs must equal the kernel run's;
+   void/void) through the lane-program kernel: lanes/s, the stage split
+   of the wall (``evaluator.stage_s``), kernel launches, host syncs, peak
+   device memory; the kernel alone on the same batch (CUDA events), its
+   longest lane's chain of dependent steps and its bound; then the
+   lockstep program on that batch with the select kernel (a profiled
+   window of its inner steps) and with the plain select, whose outputs
+   must equal the kernel's;
 6. mlstm   — the chunkwise-mLSTM kernel against its plain version
    (``allclose``: float32 ``atol 2e-4, rtol 2e-3``, bfloat16 ``5e-2``) at
    the forecaster's shape over the golden dataset's 8668 windows, the
@@ -171,14 +176,14 @@ def _device_events(prof):
 
 
 def _timed_ms(torch, fn, iters: int, warmup: int) -> dict:
-    """Device time per call from torch.profiler and, beside it, the
-    CUDA-event time per call over back-to-back calls; ``ms`` is the
-    first, or the second where the profiler recorded no device event."""
+    """The CUDA-event time per call over back-to-back calls (``ms``) and,
+    beside it, the device time per call from torch.profiler.  The
+    profiler is not trusted for ``ms``: after earlier profiler runs it
+    has recorded no device event of a ctypes kernel, or a quarter of
+    them (a flash time below its bound on an H100)."""
     device = _device_ms(torch, fn, iters, warmup)
     events = _call_ms(torch, fn, iters, warmup)
-    return {"ms": device if device > 0 else events, "profiler_ms": device,
-            "cuda_event_ms": events,
-            "source": "profiler" if device > 0 else "cuda events"}
+    return {"ms": events, "profiler_ms": device, "cuda_event_ms": events}
 
 
 def _device_ms(torch, fn, iters: int, warmup: int = 20) -> float:
@@ -270,7 +275,7 @@ def phase_kernel(torch, np, dev) -> dict:
 
 
 def phase_golden(torch, np, dev) -> None:
-    from repro_torch.manyworld import lanes
+    from repro_torch.manyworld import lane_kernel, lanes
     from repro_torch.scenarios import build_scenario
     with np.load(GOLDEN, allow_pickle=False) as z:
         fx = {key: z[key] for key in z.files}
@@ -297,28 +302,37 @@ def phase_golden(torch, np, dev) -> None:
             if got.dtype != want.dtype or not np.array_equal(got, want):
                 raise SystemExit(f"golden {sched}: rebuilt input {name} "
                                  "differs from the fixture")
-        lanes.host_syncs = 0
-        t0 = time.perf_counter()
-        out = lanes.run_lane_batch(rebuilt, device=dev)
-        wall = time.perf_counter() - t0
-        bad = [key for key, val in out.items()
-               if val.dtype != fx[f"{sched}/out/{key}"].dtype
-               or not np.array_equal(val, fx[f"{sched}/out/{key}"])]
-        if set(out) != {k.split("/", 2)[2] for k in fx
-                        if k.startswith(f"{sched}/out/")}:
-            bad.append("keys")
-        report[sched] = {"lanes": int(inputs["valid"].shape[0]),
-                         "n_cycles": int(out["n_cycles"]),
-                         "host_syncs": lanes.host_syncs, "wall_s": wall,
-                         "equal": not bad}
-        if bad:
-            emit({"phase": "golden", "batches": report})
-            raise SystemExit(f"golden {sched}: outputs differ: {bad}")
+        want_keys = {k.split("/", 2)[2] for k in fx
+                     if k.startswith(f"{sched}/out/")}
+        entry = report[sched] = {"lanes": int(inputs["valid"].shape[0])}
+        # The lane-program kernel (run_lane_batch on the card), then the
+        # lockstep program with the select kernel.
+        for name, run in (("kernel", lanes.run_lane_batch),
+                          ("lockstep", lanes.run_lane_batch_lockstep)):
+            lane_kernel.launches = 0
+            lanes.host_syncs = 0
+            t0 = time.perf_counter()
+            out = run(rebuilt, device=dev)
+            wall = time.perf_counter() - t0
+            bad = [key for key, val in out.items()
+                   if val.dtype != fx[f"{sched}/out/{key}"].dtype
+                   or not np.array_equal(val, fx[f"{sched}/out/{key}"])]
+            if set(out) != want_keys:
+                bad.append("keys")
+            entry[name] = {"n_cycles": int(out["n_cycles"]),
+                           "lane_program_launches": lane_kernel.launches,
+                           "host_syncs": lanes.host_syncs, "wall_s": wall,
+                           "equal": not bad}
+            if bad or (name == "kernel" and lane_kernel.launches != 1):
+                emit({"phase": "golden", "batches": report})
+                raise SystemExit(f"golden {sched} ({name}): outputs differ "
+                                 f"or wrong launches: {bad}")
     emit({"phase": "golden", "batches": report})
 
 
 def _profile_window(torch, lanes, batch, dev, start: int, steps: int):
-    """Run ``batch`` with the kernel select while torch.profiler records
+    """Run ``batch`` through the lockstep program with the select kernel
+    while torch.profiler records
     ``steps`` inner loop steps after the first ``start`` (one step per
     host sync).  Returns the outputs and the window's numbers, or
     ``None`` for them when the run had fewer steps."""
@@ -348,7 +362,7 @@ def _profile_window(torch, lanes, batch, dev, start: int, steps: int):
     lanes._any = stepping_any
     try:
         with prof:
-            out = lanes.run_lane_batch(batch, device=dev)
+            out = lanes.run_lane_batch_lockstep(batch, device=dev)
     finally:
         lanes._any = counted_any
     if "t1" not in marks:
@@ -379,8 +393,25 @@ def _profile_window(torch, lanes, batch, dev, start: int, steps: int):
                  "device_events_per_step": len(events) / steps}
 
 
+# FP64 operations of a best-fit wave attempt per node: the two frees and
+# the slack add of the mask (the score is the free memory itself).
+BEST_FIT_OPS_PER_NODE = 3
+LANE_KERNEL_REPS = 5
+
+
+def _max_abs_err(np, a: dict, b: dict) -> float:
+    """Largest |a - b| over every lane output (0 where equal, inf too)."""
+    worst = 0.0
+    for key in a:
+        x, y = np.asarray(a[key], np.float64), np.asarray(b[key], np.float64)
+        with np.errstate(invalid="ignore"):          # inf - inf
+            d = np.where(x == y, 0.0, np.abs(x - y))
+        worst = max(worst, float(d.max()) if d.size else 0.0)
+    return worst
+
+
 def phase_main(torch, np, dev) -> dict:
-    from repro_torch.manyworld import lanes, select
+    from repro_torch.manyworld import evaluator, lane_kernel, lanes, select
     from repro_torch.search.runner import CellSpec, _get_trace, run_cells
     cells = [CellSpec(scenario="heavy-tail", scheduler="best-fit",
                       autoscaler="void", rescheduler="void", seed=seed,
@@ -390,18 +421,22 @@ def phase_main(torch, np, dev) -> dict:
     traces = [_get_trace(c.scenario, c.seed, c.n_jobs) for c in cells]
     setup_s = time.perf_counter() - t0
 
+    # The main path: run_cells through the lane-program kernel.
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    lane_kernel.launches = 0
     select.launches = 0
     lanes.host_syncs = 0
     t0 = time.perf_counter()
     rows = run_cells(cells, workers="lanes", device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, syncs = select.launches, lanes.host_syncs
+    kernel_launches = lane_kernel.launches
+    main_select_launches, syncs = select.launches, lanes.host_syncs
+    stages = dict(evaluator.stage_s)
     peak = torch.cuda.max_memory_allocated()
-    if launches == 0:
-        raise SystemExit("main path ran without launching masked_argmin")
+    if kernel_launches == 0:
+        raise SystemExit("main path ran without launching lane_program")
     bad = [r["label"] for r in rows
            if not (isinstance(r["cost"], float) and np.isfinite(r["cost"])
                    and r["n_jobs"] == 2000 and r["max_nodes"] == MAIN_NODES
@@ -409,37 +444,84 @@ def phase_main(torch, np, dev) -> dict:
     if len(rows) != MAIN_LANES or bad:
         raise SystemExit(f"main path rows malformed: {bad[:5]}")
 
-    # The same batch again: kernel select (profiled window), then the
-    # plain select on the card; every lane output must agree.
+    # The kernel alone on the same batch (CUDA events), then the lockstep
+    # program with the select kernel (profiled window) and with the plain
+    # select; all three lane outputs must agree.
     lane_dicts = []
     for tr in traces:
         d = tr.to_lane_arrays()
         d.update(n_nodes=MAIN_NODES, alloc_cpu=940.0, alloc_mem=3584.0)
         lane_dicts.append(d)
     batch = lanes.stack_lanes(lane_dicts, "best-fit", device=dev)
+    kernel_ms = []
+    for _ in range(LANE_KERNEL_REPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        res = lane_kernel.lane_program(batch)
+        end.record()
+        torch.cuda.synchronize()
+        kernel_ms.append(start.elapsed_time(end))
+    out_kernel = lane_kernel.lane_outputs(res)
+    stats = res["lane_stats"].cpu().numpy()
+    steps = stats.sum(axis=1)
+    longest = int(np.argmax(steps))
+    in_bytes = sum(getattr(batch, name).nbytes for name in lanes.BATCH_FIELDS)
+    out_bytes = sum(res[key].nbytes for key, _, _ in lane_kernel.OUTPUTS)
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops = int(stats[:, 2].sum()) * MAIN_NODES * BEST_FIT_OPS_PER_NODE
+    ops_ms = ops / FP64_OPS_PER_S * 1e3
+
+    select.launches = 0
+    lanes.host_syncs = 0
     t0 = time.perf_counter()
     out_k, window = _profile_window(torch, lanes, batch, dev,
                                     start=3000, steps=300)
-    kernel_wall = time.perf_counter() - t0
+    lockstep_wall = time.perf_counter() - t0
+    lockstep_select_launches = select.launches
+    lockstep_syncs = lanes.host_syncs
+    if lockstep_select_launches == 0:
+        raise SystemExit("the lockstep run never launched masked_argmin")
     t0 = time.perf_counter()
-    out_p = lanes.run_lane_batch(batch, device=dev,
-                                 select=select.masked_argmin_plain)
+    out_p = lanes.run_lane_batch_lockstep(batch, device=dev,
+                                          select=select.masked_argmin_plain)
     plain_wall = time.perf_counter() - t0
-    differ = [key for key in out_k if not np.array_equal(out_k[key],
-                                                         out_p[key])]
-    if differ:
-        raise SystemExit(f"kernel and plain select runs differ: {differ}")
-    if [r["completed"] for r in rows] != out_k["completed"].tolist():
+    for name, other in (("lockstep with the select kernel", out_k),
+                        ("lockstep with the plain select", out_p)):
+        differ = [key for key in out_kernel
+                  if not (out_kernel[key].dtype == other[key].dtype
+                          and np.array_equal(out_kernel[key], other[key]))]
+        if differ:
+            raise SystemExit(f"lane_program and the {name} differ: {differ}")
+    if [r["completed"] for r in rows] != out_kernel["completed"].tolist():
         raise SystemExit("rows disagree with the lane outputs")
     line = {"phase": "main", "lanes": MAIN_LANES, "p_pad": batch.p_pad,
             "n_pad": batch.n_pad, "trace_setup_s": setup_s,
             "wall_s": wall, "lanes_per_s": MAIN_LANES / wall,
-            "n_cycles": int(out_k["n_cycles"]), "host_syncs": syncs,
-            "select_launches": launches, "peak_device_bytes": peak,
-            "completed_lanes": int(out_k["completed"].sum()),
-            "profiled_kernel_select_run_wall_s": kernel_wall,
-            "plain_select_run_wall_s": plain_wall,
-            "kernel_vs_plain_outputs_equal": True,
+            "stage_s": stages,
+            "lane_program_launches": kernel_launches,
+            "host_syncs": syncs, "select_launches": main_select_launches,
+            "peak_device_bytes": peak,
+            "n_cycles": int(out_kernel["n_cycles"]),
+            "completed_lanes": int(out_kernel["completed"].sum()),
+            "lane_program_ms": kernel_ms,
+            "lane_program_ms_median": float(np.median(kernel_ms)),
+            "longest_lane": {"lane": longest,
+                             "dependent_steps": int(steps[longest]),
+                             **{k: int(v) for k, v in
+                                zip(lane_kernel.STATS, stats[longest])}},
+            "steps_all_lanes": {k: int(v) for k, v in
+                                zip(lane_kernel.STATS, stats.sum(axis=0))},
+            "bytes_in_out": in_bytes + out_bytes, "fp64_ops": ops,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "lockstep_select_kernel_run_wall_s": lockstep_wall,
+            "lockstep_select_launches": lockstep_select_launches,
+            "lockstep_host_syncs": lockstep_syncs,
+            "lockstep_plain_select_run_wall_s": plain_wall,
+            "kernel_vs_lockstep_outputs_equal": True,
+            "max_abs_err": _max_abs_err(np, out_kernel, out_p),
             "profile_window": window}
     emit(line)
     return line
@@ -1247,10 +1329,20 @@ def main() -> int:
     phase_serve_golden(torch, np, dev)
     serve_line = phase_serve_main(torch, np, dev)
     emit({"kernels": [{
+        "name": "lane_program", "route": "cuda",
+        "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
+        "replaces": "src/repro/manyworld/lanes.py:196 + "
+                    "src/repro/manyworld/select.py:65",
+        "launches": main_line["lane_program_launches"],
+        "max_abs_err": main_line["max_abs_err"],
+        "ms": main_line["lane_program_ms_median"],
+        "plain_ms": main_line["lockstep_plain_select_run_wall_s"] * 1e3,
+        "library_ms": None, "bound_ms": main_line["bound_ms"],
+        "bound_by": main_line["bound_by"]}, {
         "name": "masked_argmin", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/masked_argmin.cu",
         "replaces": "src/repro/manyworld/select.py:65",
-        "launches": main_line["select_launches"],
+        "launches": main_line["lockstep_select_launches"],
         "match": True, "max_abs_err": k["max_abs_err"],
         "ms": k["kernel_ms"], "kernel_ms": k["kernel_ms"],
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],

@@ -37,13 +37,21 @@ import time
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.manyworld import lane_kernel
 from repro_torch.manyworld import lanes as _lanes
 from repro_torch.manyworld.lanes import (CYCLE_PERIOD_S, HORIZON_S,
                                          SCHEDULERS, next_pow2)
 
 SAMPLE_PERIOD_S = 20.0
+
+# Seconds by stage of the last run_cells_lanes call: traces and lane
+# arrays built on the host ("prepare_s"), batches stacked and uploaded,
+# the lane program (the kernel on the card, to its end), outputs copied
+# back, and the host replay of the rows (_lane_metrics).
+stage_s: dict = {}
 
 
 def lane_eligible(cell) -> bool:
@@ -289,6 +297,10 @@ def run_cells_lanes(cells: Sequence, device=None) -> List[dict]:
     from repro_torch.search.runner import (CellError, _get_trace,
                                            _infeasible, _template_of)
     dev = resolve_device(device)
+    stage_s.clear()
+    stage_s.update(prepare_s=0.0, stack_upload_s=0.0, lane_program_s=0.0,
+                   download_s=0.0, host_replay_s=0.0)
+    t_prep = time.perf_counter()
     cells = list(cells)
     for cell in cells:
         if not lane_eligible(cell):
@@ -326,12 +338,29 @@ def run_cells_lanes(cells: Sequence, device=None) -> List[dict]:
         except Exception as exc:
             raise CellError(f"cell {cell.label} failed: {exc!r}") from exc
 
+    stage_s["prepare_s"] = time.perf_counter() - t_prep
+
     for (sched, p_pad, _n_pad), entries in buckets.items():
         t0 = time.perf_counter()
         batch = _lanes.stack_lanes([e[4] for e in entries], sched,
                                    p_pad=p_pad, device=dev)
-        out = _lanes.run_lane_batch(batch, device=dev)
-        share = (time.perf_counter() - t0) / len(entries)
+        if dev.type == "cuda":
+            # run_lane_batch's CUDA path, its stages timed apart.
+            torch.cuda.synchronize(dev)
+            t1 = time.perf_counter()
+            res = lane_kernel.lane_program(batch)
+            torch.cuda.synchronize(dev)
+            t2 = time.perf_counter()
+            out = lane_kernel.lane_outputs(res)
+        else:
+            t1 = time.perf_counter()
+            out = _lanes.run_lane_batch(batch, device=dev)
+            t2 = time.perf_counter()
+        t3 = time.perf_counter()
+        stage_s["stack_upload_s"] += t1 - t0
+        stage_s["lane_program_s"] += t2 - t1
+        stage_s["download_s"] += t3 - t2
+        share = (t3 - t0) / len(entries)
         for li, (idx, cell, trace, template, _lane) in enumerate(entries):
             o = {key: val[li] for key, val in out.items()
                  if key != "n_cycles"}
@@ -343,4 +372,5 @@ def run_cells_lanes(cells: Sequence, device=None) -> List[dict]:
             except Exception as exc:
                 raise CellError(
                     f"cell {cell.label} failed: {exc!r}") from exc
+        stage_s["host_replay_s"] += time.perf_counter() - t3
     return rows

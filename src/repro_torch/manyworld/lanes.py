@@ -2,10 +2,16 @@
 
 One *lane* is one full static-cluster experiment — trace, scheduler,
 fleet size — and a batch of lanes runs over stacked ``(lane, node)`` /
-``(lane, pod)`` tensors.  This is an eager, lockstep port of the JAX
-program in ``repro/manyworld/lanes.py``: the same state, the same steps in
-the same order, with each ``lax.while_loop`` become a Python ``while`` on
-``bool(t.any())`` and the state updated in place on the device.
+``(lane, pod)`` tensors.  :func:`run_lane_batch` runs a batch on the card
+as ONE launch of the CUDA kernel ``csrc/lane_program.cu``
+(:mod:`repro_torch.manyworld.lane_kernel`), in which each lane runs its
+own cycle loop; on the CPU it runs :func:`run_lane_batch_lockstep`.
+
+:func:`run_lane_batch_lockstep` is the kernel's plain PyTorch version: an
+eager, lockstep port of the JAX program in ``repro/manyworld/lanes.py``,
+the same state, the same steps in the same order, with each
+``lax.while_loop`` become a Python ``while`` on ``bool(t.any())`` and the
+state updated in place on the device:
 
 * the cycle loop advances the 10 s scheduling cycle for all lanes
   together until every lane is finished (completed, stuck or quiescent)
@@ -25,8 +31,9 @@ fused operator (``addcmul``, ``lerp``, ``torch.compile``).  Divisors are
 tensors, except the ``/ 2.0`` of the blend, which CUDA may turn into
 ``* 0.5`` — exact.  The outputs are bit-identical to the JAX program's.
 
-**Host syncs.**  Every loop condition copies one flag to the host: one
-sync per inner step.  ``host_syncs`` counts them.
+**Host syncs.**  Every loop condition of the lockstep program copies one
+flag to the host: one sync per inner step.  ``host_syncs`` counts them;
+the kernel makes none.
 """
 from __future__ import annotations
 
@@ -38,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.manyworld.select import masked_argmin
+from repro_torch.manyworld.select import (masked_argmin,
+                                          masked_argmin_plain)
 
 CYCLE_PERIOD_S = 10.0
 HORIZON_S = 48 * 3600.0          # SimConfig.max_sim_time_s default
@@ -177,10 +185,27 @@ def _any(t: torch.Tensor) -> bool:
     return bool(t.any())
 
 
-def run_lane_batch(batch: LaneBatch, device=None,
-                   select: Callable = masked_argmin) -> dict:
-    """Execute one :class:`LaneBatch`; returns numpy lane outputs with the
-    JAX program's keys and dtypes.
+def run_lane_batch(batch: LaneBatch, device=None) -> dict:
+    """Execute one :class:`LaneBatch` on ``device`` (``None`` means CUDA;
+    the batch is moved there if it lies elsewhere); returns numpy lane
+    outputs with the JAX program's keys and dtypes (see
+    :func:`run_lane_batch_lockstep`).  On CUDA this is one launch of the
+    lane-program kernel and no host sync until the outputs are copied
+    back; on the CPU it is the lockstep program with the plain select."""
+    from repro_torch.manyworld import lane_kernel   # builds on this module
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return run_lane_batch_lockstep(batch, dev, select=masked_argmin_plain)
+    on_dev = dataclasses.replace(
+        batch, **{name: getattr(batch, name).to(dev) for name in BATCH_FIELDS})
+    return lane_kernel.lane_outputs(lane_kernel.lane_program(on_dev))
+
+
+def run_lane_batch_lockstep(batch: LaneBatch, device=None,
+                            select: Callable = masked_argmin) -> dict:
+    """Execute one :class:`LaneBatch` in lockstep, one eager step for all
+    lanes at a time; returns numpy lane outputs with the JAX program's
+    keys and dtypes.
 
     Per lane: ``completed`` / ``done_time`` / ``done_is_cycle`` /
     ``scale_outs``; per pod: ``bound``, ``bind_node`` (node rank),

@@ -9,6 +9,7 @@ Every test here is marked ``gpu`` and skips itself without a CUDA card
 The file imports only torch, numpy and the port, so it runs where JAX is
 not installed.
 """
+import dataclasses
 import hashlib
 from pathlib import Path
 
@@ -21,10 +22,11 @@ from repro_torch.forecast import features, model
 from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import mlstm_chunkwise as mlstm
 from repro_torch.kernels import rglru_scan as rglru
-from repro_torch.manyworld import lanes, select
+from repro_torch.manyworld import lane_kernel, lanes, select
 from repro_torch.search.runner import CellSpec, _get_trace, run_cells
 
 GOLDEN = Path(__file__).resolve().parent / "data" / "torch_forecaster_golden"
+LANE_GOLDEN = Path(__file__).resolve().parent / "data" / "torch_lane_golden.npz"
 FAMILIES = ("diurnal", "flash-crowd", "heavy-tail", "mix-ramp",
             "scale-stress", "multi-tenant")
 
@@ -83,15 +85,29 @@ def test_lane_outputs_on_cuda_equal_cpu(cuda, sched):
         d.update(n_nodes=nw, alloc_cpu=940.0, alloc_mem=3584.0,
                  weights=(0.2, 0.5, 0.3) if sched == "weighted" else None)
         lane_dicts.append(d)
-    before = select.launches
+    before = lane_kernel.launches
     on_gpu = lanes.run_lane_batch(
+        lanes.stack_lanes(lane_dicts, sched, device=cuda), device=cuda)
+    assert lane_kernel.launches == before + 1
+    on_cpu = lanes.run_lane_batch(
+        lanes.stack_lanes(lane_dicts, sched, device="cpu"), device="cpu")
+    _assert_equal(on_gpu, on_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", lanes.SCHEDULERS)
+def test_lockstep_select_kernel_on_cuda_equal_cpu(cuda, sched):
+    """The lockstep program on the card, whose every select launches the
+    standalone masked-argmin kernel."""
+    lane_dicts = [_lane("mix-ramp", seed, 40, nw, sched)
+                  for seed, nw in ((0, 4), (1, 2))]
+    before = select.launches
+    on_gpu = lanes.run_lane_batch_lockstep(
         lanes.stack_lanes(lane_dicts, sched, device=cuda), device=cuda)
     assert select.launches > before
     on_cpu = lanes.run_lane_batch(
         lanes.stack_lanes(lane_dicts, sched, device="cpu"), device="cpu")
-    for key in on_cpu:
-        assert on_gpu[key].dtype == on_cpu[key].dtype, key
-        assert np.array_equal(on_gpu[key], on_cpu[key]), key
+    _assert_equal(on_gpu, on_cpu)
 
 
 @pytest.mark.gpu
@@ -100,11 +116,115 @@ def test_rows_on_cuda_equal_cpu(cuda):
                       rescheduler="void", seed=seed, n_jobs=40,
                       initial_workers=3)
              for s in ("heavy-tail", "diurnal") for seed in range(2)]
+    before = lane_kernel.launches
     on_gpu = run_cells(cells)                 # device=None is the card
+    assert lane_kernel.launches > before
     on_cpu = run_cells(cells, device="cpu")
     for g, c in zip(on_gpu, on_cpu):
         g.pop("wall_s"), c.pop("wall_s")
         assert g == c
+
+
+def _assert_equal(got, want):
+    assert got.keys() == want.keys()
+    for key in want:
+        assert got[key].dtype == want[key].dtype, key
+        assert np.array_equal(got[key], want[key]), key
+
+
+def _lane(scen, seed, n_jobs, n_nodes, sched="best-fit"):
+    d = _get_trace(scen, seed, n_jobs).to_lane_arrays()
+    d.update(n_nodes=n_nodes, alloc_cpu=940.0, alloc_mem=3584.0,
+             weights=(0.6, 0.1, 0.3) if sched == "weighted" else None)
+    return d
+
+
+def _pods(arrival, cpu, dur, n_nodes=2):
+    n = len(arrival)
+    return {"arrival_t": np.asarray(arrival, float),
+            "cpu_m": np.asarray(cpu, float), "mem_mb": np.full(n, 100.0),
+            "duration_s": np.asarray(dur, float),
+            "is_batch": np.ones(n, bool), "n_nodes": n_nodes,
+            "alloc_cpu": 940.0, "alloc_mem": 3584.0}
+
+
+def _edge_batches(sched):
+    """(name, lane dicts, lockstep on the card too): the edges of
+    tests/test_torch_lane_kernel.py, built without JAX."""
+    ht = [_lane("heavy-tail", s, 24, 2, sched) for s in range(5)]
+    rng = np.random.default_rng(0)
+    mixed = _lane("mix-ramp", 0, 40, 3, sched)
+    perm = rng.permutation(mixed["arrival_t"].size)
+    shuffled = dict(mixed, **{k: mixed[k][perm] for k in
+                              ("arrival_t", "cpu_m", "mem_mb", "duration_s",
+                               "is_batch")})
+    return [
+        ("infeasible_and_zero_pod",
+         [_pods([0.0, 5.0], [2000.0, 2000.0], [60.0, 60.0], 3), ht[0],
+          _lane("heavy-tail", 0, 0, 2, sched)], True),
+        ("three_lanes", ht[:3], True),
+        ("five_lanes", ht, True),
+        ("unsorted_rows", [shuffled, ht[1]], True),
+        # A stuck lane and a lane past the 48 h horizon (MAX_CYCLES + 1
+        # cycles; too long for the lockstep program's syncs on the card).
+        ("stuck_and_horizon",
+         [_pods([0.0, 5.0], [200.0, 2000.0], [30.0, 60.0]),
+          _pods([0.0, 0.0], [100.0, 100.0], [300.0, 200000.0]), ht[0]],
+         False),
+    ]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sched", lanes.SCHEDULERS)
+def test_lane_kernel_equals_lockstep_on_edges(cuda, sched):
+    for name, lane_dicts, lockstep_on_card in _edge_batches(sched):
+        on_card = lanes.stack_lanes(lane_dicts, sched, device=cuda)
+        on_cpu = lanes.stack_lanes(lane_dicts, sched, device="cpu")
+        before = lane_kernel.launches
+        res = lane_kernel.lane_program(on_card)
+        torch.cuda.synchronize()
+        assert lane_kernel.launches == before + 1, name
+        got = lane_kernel.lane_outputs(res)
+        _assert_equal(got, lanes.run_lane_batch(on_cpu, device="cpu"))
+        if lockstep_on_card:
+            _assert_equal(got, lanes.run_lane_batch_lockstep(on_card,
+                                                             device=cuda))
+        plain = lane_kernel.lane_program_plain(on_cpu)
+        assert torch.equal(res["lane_stats"].cpu(), plain["lane_stats"]), name
+        _assert_equal(got, lane_kernel.lane_outputs(plain))
+
+
+@pytest.mark.gpu
+def test_lane_kernel_reproduces_golden_fixture(cuda):
+    with np.load(LANE_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    for sched in lanes.SCHEDULERS:
+        rows = type("Rows", (), {"scheduler": sched})
+        for name in lanes.BATCH_FIELDS:
+            setattr(rows, name, fx[f"{sched}/in/{name}"])
+        before = lane_kernel.launches
+        got = lanes.run_lane_batch(lanes.lane_batch_from_numpy(rows, cuda),
+                                   device=cuda)
+        assert lane_kernel.launches == before + 1
+        want = {key.split("/", 2)[2]: val for key, val in fx.items()
+                if key.startswith(f"{sched}/out/")}
+        _assert_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_lane_kernel_zero_lanes_and_limits(cuda):
+    empty = lanes.stack_lanes([], "best-fit", device=cuda)
+    before = lane_kernel.launches
+    out = lanes.run_lane_batch(empty, device=cuda)
+    assert lane_kernel.launches == before
+    assert out["bound"].shape == (0, empty.p_pad) and int(out["n_cycles"]) == 0
+    one = lanes.stack_lanes([_lane("heavy-tail", 0, 8, 2)], "best-fit",
+                            device=cuda)
+    with pytest.raises(ValueError, match="8192"):
+        lane_kernel.lane_program(dataclasses.replace(one, n_pad=16384))
+    with pytest.raises(TypeError, match="valid"):
+        lane_kernel.lane_program(dataclasses.replace(
+            one, valid=one.valid.to(torch.uint8)))
 
 
 # (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
