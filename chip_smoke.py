@@ -28,13 +28,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    lockstep program on that batch with the select kernel (a profiled
    window of its inner steps) and with the plain select, whose outputs
    must equal the kernel's;
-6. mlstm   — the chunkwise-mLSTM kernel against its plain version
+6. mlstm   — the chunkwise-mLSTM kernels against their plain version
    (``allclose``: float32 ``atol 2e-4, rtol 2e-3``, bfloat16 ``5e-2``) at
    the forecaster's shape over the golden dataset's 8668 windows, the
    JAX kernel test's shapes in both dtypes, T = L, dv not a multiple of
-   32, a given initial state and the returned final state; its device
-   time at the forecaster's shape beside its bound and the plain
-   version's time;
+   32, a given initial state and the returned final state, and the row
+   kernel's envelope from both sides (each case through the kernel the
+   wrapper picks; both kernels must be reached); at the forecaster's
+   shape the row kernel, the block kernel (the PR 12 design) and the
+   plain version timed by CUDA events with the launches queued behind a
+   device sleep, beside the bound;
 7. forecast golden — ``load_forecaster`` on the fixture
    ``tests/data/torch_forecaster_golden`` (a forecaster trained and
    saved by the JAX package, and its outputs): the dataset rebuilt with
@@ -54,10 +57,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``scaled_dot_product_attention`` with the same mask as a yardstick,
    each with its TFLOP/s and share of the bound; the kernel's registers
    and spills from the ptxas log;
-10. rglru  — the RG-LRU scan kernel against its plain version on edge
-   shapes and at the serving shape (B 1, T 3072, R 4096, float32 in,
-   bfloat16 out), its device time there beside its bound and the plain
-   version's time;
+10. rglru  — the RG-LRU scan kernels against their plain version on
+   edge shapes of both (the chunked kernel up to 24 MB of input, the ring
+   kernel above) and at the serving shape (B 1, T 3072, R 4096, float32
+   in, bfloat16 out), failing unless both kernels ran; at T 3072, 1674
+   and 512 the ring kernel and the chunked kernel (the PR 13 design) on
+   the same inputs, timed by CUDA events with the launches queued behind
+   a device sleep, beside the bound; the plain version's time at T 3072
+   and 512;
 11. serve golden — the fixture ``tests/data/torch_serve_golden`` (an
    8-layer float32 RecurrentGemma twin's parameters and JAX's prefill and
    decode logits and greedy engine tokens): the port on the card through
@@ -67,10 +74,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    generator) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
    greedy, 16 requests at t = 0 with prompts of 256–3072 tokens and 64
    new tokens each, through ``run_server``: tokens/s, mean TTFT, prefill
-   ms by prompt length, decode step ms, peak device memory, kernel
-   launches, profiled windows of decode steps and of one prefill, and
-   decode logits against teacher-forced ``forward_train`` logits for a
-   request past the window.
+   ms by prompt length, decode step ms, peak device memory, the launches
+   of each kernel (the RG-LRU ring and chunked kernels apart; the run
+   fails unless each ran), profiled windows of decode steps and of one
+   prefill, and decode logits against teacher-forced ``forward_train``
+   logits for a request past the window;
+13. grad   — one backward through each of flash attention, the RG-LRU
+   scan and the mLSTM cell at its main path's shape: the wrapper launches
+   its kernel once through its ``autograd.Function``, and the gradients
+   for a seeded cotangent match autograd through the plain version at the
+   forward's tolerance.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -200,6 +213,58 @@ def _device_ms(torch, fn, iters: int, warmup: int = 20) -> float:
         torch.cuda.synchronize()
     us = sum(end - start for _, start, end in _device_events(prof))
     return us / iters * 1e-3
+
+
+_SLEEP_MS_PER_CYCLE = []
+
+
+def _sleep_ms_per_cycle(torch) -> float:
+    """Milliseconds per cycle of ``torch.cuda._sleep``, measured once."""
+    if not _SLEEP_MS_PER_CYCLE:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_MS_PER_CYCLE.append(start.elapsed_time(end) / 20_000_000)
+    return _SLEEP_MS_PER_CYCLE[0]
+
+
+def _queued_ms(torch, fn, iters: int, warmup: int = 10) -> dict:
+    """Device time per call by CUDA events over ``iters`` calls queued
+    behind a device sleep longer than their host issue, so that the
+    device never waits on the host (a ctypes wrapper's issue time, tens
+    of us, would otherwise set the number of a kernel near 40 us).  The
+    sleep doubles until the host finishes issuing inside it, at most
+    three times; ``host_bound`` says if it never did."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warmup):
+        fn()
+    issue_ms = (time.perf_counter() - t0) / warmup * 1e3
+    torch.cuda.synchronize()
+    sleep_ms = 2.0 * issue_ms * iters + 5.0
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(sleep_ms / _sleep_ms_per_cycle(torch)))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if host_ms < sleep_ms:
+            break
+        sleep_ms *= 2
+    return {"ms": start.elapsed_time(end) / iters, "iters": iters,
+            "host_issue_ms": host_ms, "sleep_ms": sleep_ms,
+            "host_bound": host_ms >= sleep_ms}
 
 
 def _select_cases(torch, np, dev):
@@ -529,8 +594,11 @@ def phase_main(torch, np, dev) -> dict:
 
 # (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
 # the golden dataset's batch (the main path's call; first), the JAX kernel
-# test's shapes in both dtypes, T = L, dv not a multiple of the kernel's
-# 32-column slice, a given initial state, and the kernel's limits.
+# test's shapes in both dtypes, T = L, dv not a multiple of the block
+# kernel's 32-column slice, a given initial state, and the block kernel's
+# limits; then the row kernel's envelope (L = 32 with dk = dv = 64,
+# several chunks with a state in and out, an odd count of (b, h) two to a
+# warp, bfloat16 with a state) and a dk just outside it.
 MLSTM_CASES = (
     (8668, 2, 16, 32, 32, 64, "float32", False),
     (1, 1, 128, 64, 64, 64, "float32", False),
@@ -541,6 +609,11 @@ MLSTM_CASES = (
     (2, 2, 64, 32, 48, 16, "float32", False),
     (3, 1, 32, 24, 20, 16, "float32", True),
     (1, 2, 128, 128, 64, 64, "float32", True),
+    (5, 3, 96, 64, 64, 32, "float32", True),
+    (64, 2, 64, 32, 32, 16, "float32", True),
+    (7, 1, 16, 32, 32, 64, "bfloat16", False),
+    (3, 3, 48, 16, 24, 16, "bfloat16", True),
+    (1, 2, 32, 18, 36, 16, "float32", True),
 )
 
 
@@ -580,6 +653,7 @@ def _mlstm_work(B, H, T, dk, dv, L, elem_bytes):
 def phase_mlstm(torch, np, dev) -> dict:
     from repro_torch.kernels import mlstm_chunkwise as mlstm
     results = {}
+    before = (mlstm.launches, mlstm.row_launches)
     for case in MLSTM_CASES:
         B, H, T, dk, dv, chunk, dtype, with_state = case
         name = f"{B}x{H}x{T}x{dk}x{dv}/L{min(chunk, T)}/{dtype}" + (
@@ -593,41 +667,83 @@ def phase_mlstm(torch, np, dev) -> dict:
         pairs = [(h.float(), want_h.float())] + list(zip(s, want_s))
         ok = h.dtype == want_h.dtype and all(
             torch.allclose(a, b, **tol) for a, b in pairs)
+        rows = mlstm.takes_row_kernel(min(chunk, T), dk, dv,
+                                      getattr(torch, dtype), inputs)
         results[name] = {
             "dtype": dtype, "state_in": with_state, "match": ok,
+            "kernel": "mlstm_rows" if rows else "mlstm_chunkwise",
             "max_abs_err_h": float((pairs[0][0] - pairs[0][1]).abs().max()),
             "max_abs_err_state": max(float((a - b).abs().max())
-                                     for a, b in pairs[1:])}
+                                     for a, b in pairs[1:]),
+            # The largest |error| over what allclose allows at that
+            # element: the margin left under the tolerance (1 = none).
+            "worst_share_of_tol": max(
+                float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs()))
+                      .max()) for a, b in pairs)}
         if not ok:
             emit({"phase": "mlstm", "cases": results})
             raise SystemExit(f"mlstm_chunkwise disagrees with its plain "
                              f"version on {name}")
+    row_launches = mlstm.row_launches - before[1]
+    block_launches = mlstm.launches - before[0] - row_launches
+    if not row_launches or not block_launches:
+        raise SystemExit("mlstm cases did not reach both kernels")
+    # The forecaster's shape: the row kernel (the wrapper's pick), the
+    # block kernel (the PR 12 design, still the kernel outside the row
+    # kernel's envelope) on the same inputs, and the plain version, each
+    # timed by CUDA events behind a device sleep.
     case = MLSTM_CASES[0]
     B, H, T, dk, dv, chunk = case[:6]
+    L = min(chunk, T)
     inputs, _ = _mlstm_inputs(torch, np, case, dev)
+    if not mlstm.takes_row_kernel(L, dk, dv, torch.float32, inputs):
+        raise SystemExit("mlstm: the forecaster's call falls outside the "
+                         "row kernel's envelope")
+    want_h, _ = mlstm.mlstm_chunkwise_plain(*inputs, chunk=chunk,
+                                            return_state=False)
+    block_h, _ = mlstm._mlstm_chunkwise_cuda(*inputs, None, chunk, False,
+                                             rows=False)
+    torch.cuda.synchronize()
+    if not torch.allclose(block_h, want_h, **MLSTM_TOL["float32"]):
+        raise SystemExit("mlstm block kernel disagrees with its plain "
+                         "version at the forecaster's shape")
     calls = {
         "kernel": lambda: mlstm.mlstm_chunkwise(*inputs, chunk=chunk,
                                                 return_state=False),
+        "block_kernel": lambda: mlstm._mlstm_chunkwise_cuda(
+            *inputs, None, chunk, False, rows=False),
         "plain": lambda: mlstm.mlstm_chunkwise_plain(*inputs, chunk=chunk,
                                                      return_state=False),
     }
-    iters = 200
-    device_ms = {k: _device_ms(torch, fn, iters) for k, fn in calls.items()}
-    call_ms = {k: _call_ms(torch, fn, iters) for k, fn in calls.items()}
-    nbytes, ops = _mlstm_work(B, H, T, dk, dv, min(chunk, T), 4)
+    timed = {"kernel": _queued_ms(torch, calls["kernel"], 200),
+             "block_kernel": _queued_ms(torch, calls["block_kernel"], 200),
+             "plain": _queued_ms(torch, calls["plain"], 5, warmup=2)}
+    ms = {k: v["ms"] for k, v in timed.items()}
+    nbytes, ops = _mlstm_work(B, H, T, dk, dv, L, 4)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
     f32 = [r for r in results.values() if r["dtype"] == "float32"]
     line = {"phase": "mlstm", "cases": results, "tolerance": MLSTM_TOL,
-            "shape": [B, H, T, dk, dv], "chunk": min(chunk, T),
-            "iters": iters, "kernel_ms": device_ms["kernel"],
-            "plain_ms": device_ms["plain"], "library_ms": None,
+            "shape": [B, H, T, dk, dv], "chunk": L,
+            "timing": "CUDA events, launches queued behind a device sleep",
+            "kernel": "mlstm_rows", "kernel_ms": ms["kernel"],
+            "block_kernel_ms": ms["block_kernel"],
+            "plain_ms": ms["plain"], "library_ms": None,
             "library_call": "no single PyTorch call computes this function",
-            "call_ms": call_ms, "bytes": nbytes, "flops": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
+            "timed": timed, "bytes": nbytes, "flops": ops,
+            "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "share_of_bound": {k: bound_ms / v for k, v in ms.items()},
+            "block_kernel_max_abs_err": float((block_h - want_h).abs().max()),
+            "launches": {"rows": row_launches,
+                         "block": block_launches},
             "max_abs_err": max(max(r["max_abs_err_h"], r["max_abs_err_state"])
                                for r in f32),
+            "max_abs_err_by_kernel": {
+                kernel: max(max(r["max_abs_err_h"], r["max_abs_err_state"])
+                            for r in f32 if r["kernel"] == kernel)
+                for kernel in ("mlstm_rows", "mlstm_chunkwise")},
             "max_abs_err_bf16": max(r["max_abs_err_h"] for r in
                                     results.values()
                                     if r["dtype"] == "bfloat16")}
@@ -747,7 +863,7 @@ def phase_forecast_main(torch, np, dev, data) -> dict:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    mlstm.launches = 0
+    mlstm.launches = mlstm.row_launches = 0
     t0 = time.perf_counter()
     out = forecast()
     cold_s = time.perf_counter() - t0
@@ -777,9 +893,9 @@ def phase_forecast_main(torch, np, dev, data) -> dict:
         latency.append(time.perf_counter() - t0)
     ran = np.asarray(latency[fc.window.history_bins - 1:]) * 1e3
     launches = mlstm.launches
-    if launches == 0 or len(ran) == 0:
+    if mlstm.row_launches == 0 or len(ran) == 0:
         raise SystemExit("forecast main path ran without launching "
-                         "mlstm_chunkwise")
+                         "the mlstm row kernel")
     out = out.cpu().numpy()
     if out.shape != (n,) or not np.isfinite(out).all():
         raise SystemExit("forecast main path outputs malformed")
@@ -796,7 +912,9 @@ def phase_forecast_main(torch, np, dev, data) -> dict:
             "windows_per_s_warm": n / warm_s, "windows_per_s_cold": n / cold_s,
             "batched_calls": 1 + len(warm),
             "batched_mlstm_launches": batched_launches,
-            "mlstm_launches": launches, "peak_device_bytes": peak,
+            "mlstm_launches": launches,
+            "mlstm_row_launches": mlstm.row_launches,
+            "peak_device_bytes": peak,
             "profiled_call": {
                 "device_ms": device_ms, "mlstm_kernel_ms": mlstm_ms,
                 "device_events": len(events),
@@ -818,7 +936,10 @@ def phase_forecast_main(torch, np, dev, data) -> dict:
 
 # (B, T, R, input dtype, output dtype): the serving shape first (float32
 # coefficients from _coeffs, bfloat16 out), then T = 1, T and R not
-# multiples of any block, B > 1, bfloat16 inputs.
+# multiples of any block, B > 1, bfloat16 inputs (all these but the
+# serving shape take the chunked kernel, inputs of up to 24 MB); then the
+# ring kernel's edges: 8191 steps at B 4, rows that are not whole
+# 16-byte pieces, T shorter than one 64-step tile, bfloat16 in and out.
 RGLRU_CASES = (
     (1, 3072, 4096, "float32", "bfloat16"),
     (1, 1, 4096, "float32", "float32"),
@@ -827,9 +948,17 @@ RGLRU_CASES = (
     (2, 200, 257, "bfloat16", "float32"),
     (1, 15, 31, "float32", "bfloat16"),
     (1, 3072, 4096, "float32", "float32"),
+    (4, 8191, 256, "float32", "float32"),
+    (2, 1600, 2051, "bfloat16", "float32"),
+    (1, 40, 160000, "float32", "bfloat16"),
+    (1, 2000, 4096, "bfloat16", "bfloat16"),
 )
-# Chunk carries chained in another order than the sequential walk
-# (float32 rounding); a bfloat16 output may round one ulp apart.
+# Prompt lengths of the serve cell timed besides the serving shape: the
+# ring kernel at a mid-length prompt, the chunked kernel at a short one.
+RGLRU_TIMED_T = (3072, 1674, 512)
+# The chunked kernel chains its chunks' carries in another order than
+# the sequential walk (float32 rounding; a bfloat16 output may round one
+# ulp apart); the ring kernel walks the sequential order.
 RGLRU_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
              "bfloat16": dict(atol=1e-2, rtol=1e-2)}
 
@@ -846,6 +975,7 @@ def _rglru_inputs(torch, np, case, dev):
 def phase_rglru(torch, np, dev) -> dict:
     from repro_torch.kernels import rglru_scan as rglru
     results = {}
+    before = (rglru.launches, rglru.chunked_launches)
     for case in RGLRU_CASES:
         B, T, R, dtype, out_dtype = case
         name = f"{B}x{T}x{R}/{dtype}->{out_dtype}"
@@ -856,37 +986,92 @@ def phase_rglru(torch, np, dev) -> dict:
         want = rglru.rglru_scan_plain(a, b, out_dtype=od)
         ok = h.dtype == want.dtype == od and torch.allclose(
             h.float(), want.float(), **RGLRU_TOL[out_dtype])
-        results[name] = {"match": ok, "max_abs_err": float(
-            (h.float() - want.float()).abs().max())}
+        results[name] = {
+            "match": ok, "kernel": "chunked" if rglru.takes_chunked_kernel(a)
+            else "ring",
+            "max_abs_err": float((h.float() - want.float()).abs().max())}
         if not ok:
             emit({"phase": "rglru", "cases": results})
             raise SystemExit(f"rglru_scan disagrees with its plain version "
                              f"on {name}")
-    B, T, R = RGLRU_CASES[0][:3]
-    a, b = _rglru_inputs(torch, np, RGLRU_CASES[0], dev)
+    chunked_launches = rglru.chunked_launches - before[1]
+    ring_launches = rglru.launches - before[0] - chunked_launches
+    if not chunked_launches or not ring_launches:
+        raise SystemExit("rglru cases did not launch both kernels: "
+                         f"ring {ring_launches}, chunked {chunked_launches}")
+    # Device time at the serving shape and at the other timed prompt
+    # lengths: the ring kernel and the chunked kernel (the PR 13 design,
+    # the parent's kernel at every length) on the same inputs, both by
+    # CUDA events behind a device sleep; the plain version, an eager loop
+    # over T issued from the host, by back-to-back CUDA events (its host
+    # issue is its time), at the longest and the shortest length.
     bf16 = torch.bfloat16
-    calls = {"kernel": lambda: rglru.rglru_scan(a, b, out_dtype=bf16),
-             "plain": lambda: rglru.rglru_scan_plain(a, b, out_dtype=bf16)}
-    timed = {"kernel": _timed_ms(torch, calls["kernel"], 200, 20),
-             "plain": _timed_ms(torch, calls["plain"], 3, 2)}
-    device_ms = {k_: v["ms"] for k_, v in timed.items()}
-    nbytes = B * T * R * (4 + 4 + 2)       # a, b float32 in, h bfloat16 out
-    ops = 2 * B * T * R                    # one multiply-add per element
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    by_t = {}
+    for T in RGLRU_TIMED_T:
+        B, R = RGLRU_CASES[0][0], RGLRU_CASES[0][2]
+        a, b = _rglru_inputs(torch, np, (B, T, R, "float32", "bfloat16"),
+                             dev)
+        want = rglru.rglru_scan_plain(a, b, out_dtype=bf16)
+        timed, errs = {}, {}
+        for kernel, chunked in (("ring", False), ("chunked", True)):
+            def run(chunked=chunked):
+                return rglru._rglru_scan_cuda(a, b, bf16, chunked=chunked)
+            h = run()
+            torch.cuda.synchronize()
+            if not torch.allclose(h.float(), want.float(),
+                                  **RGLRU_TOL["bfloat16"]):
+                raise SystemExit(f"rglru {kernel} kernel disagrees at T {T}")
+            errs[kernel] = float((h.float() - want.float()).abs().max())
+            timed[kernel] = _queued_ms(torch, run, 200)
+        if T in (RGLRU_TIMED_T[0], RGLRU_TIMED_T[-1]):
+            timed["plain"] = {"ms": _call_ms(torch, lambda: (
+                rglru.rglru_scan_plain(a, b, out_dtype=bf16)), 3, 2),
+                "how": "back-to-back CUDA events"}
+        nbytes = B * T * R * (4 + 4 + 2)   # a, b float32 in, h bfloat16 out
+        ops = 2 * B * T * R                # a multiply and an add each
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / FP32_OPS_PER_S * 1e3
+        bound_ms = max(bytes_ms, ops_ms)
+        by_t[T] = {"ms": {k: v["ms"] for k, v in timed.items()},
+                   "share_of_bound": {k: bound_ms / v["ms"]
+                                      for k, v in timed.items()},
+                   "picked": "chunked" if rglru.takes_chunked_kernel(a)
+                   else "ring",
+                   "timed": timed, "bytes": nbytes, "ops": ops,
+                   "bound_ms": bound_ms,
+                   "bound_by": "bytes" if bytes_ms >= ops_ms
+                   else "operations",
+                   "max_abs_err": errs}
+    long, short = by_t[RGLRU_TIMED_T[0]], by_t[RGLRU_TIMED_T[-1]]
+    if long["picked"] != "ring" or short["picked"] != "chunked":
+        raise SystemExit("rglru timed lengths do not cover both kernels")
     line = {"phase": "rglru", "cases": results, "tolerance": RGLRU_TOL,
-            "shape": [B, T, R], "kernel_ms": device_ms["kernel"],
-            "plain_ms": device_ms["plain"], "library_ms": None,
+            "case_launches": {"ring": ring_launches,
+                              "chunked": chunked_launches},
+            "timing": "CUDA events, launches queued behind a device sleep",
+            "ring": {"T": RGLRU_TIMED_T[0], "ms": long["ms"]["ring"],
+                     "parent_ms": long["ms"]["chunked"],
+                     "plain_ms": long["ms"]["plain"],
+                     "bound_ms": long["bound_ms"],
+                     "bound_by": long["bound_by"],
+                     "share_of_bound": long["share_of_bound"]["ring"]},
+            "chunked": {"T": RGLRU_TIMED_T[-1], "ms": short["ms"]["chunked"],
+                        "ring_ms": short["ms"]["ring"],
+                        "plain_ms": short["ms"]["plain"],
+                        "bound_ms": short["bound_ms"],
+                        "bound_by": short["bound_by"],
+                        "share_of_bound":
+                            short["share_of_bound"]["chunked"]},
+            "library_ms": None,
             "library_call": "no single PyTorch call computes this "
                             "recurrence",
-            "timing": timed, "bytes": nbytes, "ops": ops,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "max_abs_err": max(r["max_abs_err"] for n, r in results.items()
-                               if n.endswith("float32")),
-            "max_abs_err_bf16": max(r["max_abs_err"] for n, r in
-                                    results.items()
-                                    if n.endswith("bfloat16"))}
+            "by_T": by_t,
+            "max_abs_err": {
+                kernel: max([r["max_abs_err"] for r in results.values()
+                             if r["kernel"] == kernel]
+                            + [t["max_abs_err"][kernel]
+                               for t in by_t.values()])
+                for kernel in ("ring", "chunked")}}
     emit(line)
     return line
 
@@ -1219,13 +1404,14 @@ def phase_serve_main(torch, np, dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     flash.launches = 0
-    rglru.launches = 0
+    rglru.launches = rglru.chunked_launches = 0
     t0 = time.perf_counter()
     metrics = serve.run_server(eng, reqs, log=lambda s: None)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash.launches,
-                "rglru_scan": rglru.launches}
+                "rglru_ring": rglru.launches - rglru.chunked_launches,
+                "rglru_chunked": rglru.chunked_launches}
     peak = torch.cuda.max_memory_allocated()
     eng.admit, eng.step = admit, step
     bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
@@ -1304,6 +1490,76 @@ def phase_serve_main(torch, np, dev) -> dict:
 
 
 
+def phase_grad(torch, np, dev) -> dict:
+    """One backward through each model kernel's wrapper at its main
+    path's shape: from inputs that require grad the wrapper launches the
+    kernel once through its ``autograd.Function`` and returns a result
+    with a ``grad_fn``; the gradients for a seeded cotangent must match
+    autograd through the plain version on the same inputs, at the
+    forward's tolerance."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    from repro_torch.kernels import rglru_scan as rglru
+    rng = np.random.default_rng(16)
+    bf16 = torch.bfloat16
+    window = FLASH_CASES[0][7]
+    chunk = MLSTM_CASES[0][5]
+    checks = {
+        "rglru_scan": (
+            rglru, lambda a, b: rglru.rglru_scan(a, b, out_dtype=bf16),
+            lambda a, b: rglru.rglru_scan_plain(a, b, out_dtype=bf16),
+            _rglru_inputs(torch, np, RGLRU_CASES[0], dev),
+            RGLRU_TOL["bfloat16"]),
+        "flash_attention": (
+            flash, lambda q, k, v: flash.flash_attention(q, k, v,
+                                                         window=window),
+            lambda q, k, v: flash.flash_attention_plain(q, k, v,
+                                                        window=window),
+            _flash_inputs(torch, np, FLASH_CASES[0], dev),
+            FLASH_TOL["bfloat16"]),
+        "mlstm_chunkwise": (
+            mlstm, lambda *x: mlstm.mlstm_chunkwise(
+                *x, chunk=chunk, return_state=False)[0],
+            lambda *x: mlstm.mlstm_chunkwise_plain(
+                *x, chunk=chunk, return_state=False)[0],
+            _mlstm_inputs(torch, np, MLSTM_CASES[0], dev)[0],
+            MLSTM_TOL["float32"]),
+    }
+    report = {}
+    for name, (module, kernel_fn, plain_fn, inputs, tol) in checks.items():
+        inputs = [t.detach().requires_grad_() for t in inputs]
+        before = module.launches
+        out = kernel_fn(*inputs)
+        launched = module.launches - before
+        cot = torch.tensor(rng.standard_normal(tuple(out.shape)),
+                           dtype=out.dtype, device=dev)
+        t0 = time.perf_counter()
+        grads = torch.autograd.grad(out, inputs, cot)
+        torch.cuda.synchronize()
+        backward_s = time.perf_counter() - t0
+        want = torch.autograd.grad(plain_fn(*inputs), inputs, cot)
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(grads, want)]
+        ok = (out.grad_fn is not None and launched == 1 and all(
+            g.dtype == w.dtype and torch.isfinite(g).all() and
+            torch.allclose(g.float(), w.float(), **tol)
+            for g, w in zip(grads, want)))
+        report[name] = {"shapes": [list(t.shape) for t in inputs],
+                        "grad_fn": type(out.grad_fn).__name__,
+                        "forward_launches": launched,
+                        "backward_s": backward_s, "tolerance": tol,
+                        "max_abs_err_by_input": errs, "match": ok}
+        if not ok:
+            emit({"phase": "grad", "kernels": report})
+            raise SystemExit(f"{name}: gradients through the kernel "
+                             "disagree with the plain version's")
+        del inputs, out, grads, want
+        torch.cuda.empty_cache()
+    line = {"phase": "grad", "kernels": report}
+    emit(line)
+    return line
+
+
 def _leaves(tree):
     from repro_torch.models.params import leaves_with_paths
     return [t for _, t in leaves_with_paths(tree)]
@@ -1328,6 +1584,7 @@ def main() -> int:
     rg = phase_rglru(torch, np, dev)
     phase_serve_golden(torch, np, dev)
     serve_line = phase_serve_main(torch, np, dev)
+    phase_grad(torch, np, dev)
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -1348,13 +1605,28 @@ def main() -> int:
         "plain_ms": k["plain_ms"], "library_ms": k["library_ms"],
         "bound_ms": k["bound_ms"], "bound_us": k["bound_ms"] * 1e3,
         "bound_by": k["bound_by"]}, {
+        "name": "mlstm_rows", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
+        "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
+        "launches": forecast_line["mlstm_row_launches"],
+        "max_abs_err": m["max_abs_err_by_kernel"]["mlstm_rows"],
+        "ms": m["kernel_ms"], "parent_ms": m["block_kernel_ms"],
+        "plain_ms": m["plain_ms"], "library_ms": None,
+        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+        "design": "a lane per row of a chunk, one or two (b, h) a warp, "
+                  "no block barrier; persistent blocks whose warps keep "
+                  "the next chunk in a cp.async ring"}, {
         "name": "mlstm_chunkwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
         "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
-        "launches": forecast_line["mlstm_launches"],
-        "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
-        "plain_ms": m["plain_ms"], "library_ms": None,
-        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"]}, {
+        "launches": forecast_line["mlstm_launches"]
+                    - forecast_line["mlstm_row_launches"],
+        "on_main_path": False,
+        "edge_case_launches": m["launches"]["block"],
+        "max_abs_err": m["max_abs_err_by_kernel"]["mlstm_chunkwise"],
+        "ms": m["block_kernel_ms"], "plain_ms": m["plain_ms"],
+        "library_ms": None, "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"]}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",
@@ -1365,10 +1637,28 @@ def main() -> int:
         "name": "rglru_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:35",
-        "launches": serve_line["launches"]["rglru_scan"],
-        "max_abs_err": rg["max_abs_err"], "ms": rg["kernel_ms"],
-        "plain_ms": rg["plain_ms"], "library_ms": None,
-        "bound_ms": rg["bound_ms"], "bound_by": rg["bound_by"]}]})
+        "launches": serve_line["launches"]["rglru_ring"],
+        "max_abs_err": rg["max_abs_err"]["ring"], "T": rg["ring"]["T"],
+        "ms": rg["ring"]["ms"], "parent_ms": rg["ring"]["parent_ms"],
+        "plain_ms": rg["ring"]["plain_ms"], "library_ms": None,
+        "bound_ms": rg["ring"]["bound_ms"],
+        "bound_by": rg["ring"]["bound_by"],
+        "design": "the ring kernel, for inputs over 24 MB: a and b stream "
+                  "once through a shared-memory ring kept full by seven "
+                  "copier warps while warp 0 walks each channel in "
+                  "order"}, {
+        "name": "rglru_chunked", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:35",
+        "launches": serve_line["launches"]["rglru_chunked"],
+        "max_abs_err": rg["max_abs_err"]["chunked"],
+        "T": rg["chunked"]["T"], "ms": rg["chunked"]["ms"],
+        "plain_ms": rg["chunked"]["plain_ms"], "library_ms": None,
+        "bound_ms": rg["chunked"]["bound_ms"],
+        "bound_by": rg["chunked"]["bound_by"],
+        "design": "the PR 13 kernel, unchanged, for inputs of up to 24 MB: "
+                  "16 time chunks a block, each walked twice, the second "
+                  "walk from L2"}]})
     print(info["nvidia_smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

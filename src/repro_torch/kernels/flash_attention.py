@@ -23,8 +23,14 @@ bfloat16 for the weighted sum, as the model's reference ``_mha`` does;
 ``tests/test_torch_flash_attention.py`` emulates that arithmetic on the
 CPU and holds it to the oracle at the bfloat16 tolerance.
 
-``launches`` counts kernel launches, so a run can show that it went
-through the kernel.
+With grad enabled and an input that requires grad, the call goes
+through ``_autograd.apply``: the same forward, and a backward that
+differentiates ``flash_attention_plain`` recomputed on the same device
+(it holds the full (T, S) logits: a training-size backward, not a
+kernel).
+
+``launches`` counts kernel launches (forward only), so a run can show
+that it went through the kernel.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels import _autograd
 
 NEG_INF = -2.0 ** 30
 MAX_HEAD_DIM = 256
@@ -75,6 +82,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors.  Arguments and result as :func:`flash_attention_plain`."""
+    opts = dict(causal=causal, window=window, sm_scale=sm_scale)
+    if _autograd.wants_grad(q, k, v):
+        return _autograd.apply(
+            lambda q, k, v: (_flash_attention(q, k, v, **opts),),
+            lambda q, k, v: (flash_attention_plain(q, k, v, **opts),),
+            (q, k, v))[0]
+    return _flash_attention(q, k, v, **opts)
+
+
+def _flash_attention(q, k, v, *, causal, window, sm_scale):
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      sm_scale=sm_scale)

@@ -11,27 +11,45 @@ normaliser ``n (dk)`` and the stabiliser ``m``, starting from
 ``m = -inf`` (or a given state), and returns ``h`` in q's dtype and the
 final state ``(C, n, m)`` in float32 when ``return_state`` is set.
 
-``launches`` counts kernel launches, so a run can show that it went
-through the kernel.
+Two kernels in ``csrc/mlstm_chunkwise.cu`` share the CUDA path, and
+the wrapper picks one by shape.  The row kernel (``mlstm_rows``) takes
+the forecaster's envelope: chunk length ``L <= 32``, ``dk, dv <= 64``,
+with ``L``, ``dk`` and ``dv`` whole 16-byte rows (multiples of 4 in
+float32, of 8 in bfloat16) and 16-byte-aligned inputs.  The block
+kernel (``mlstm_chunkwise``) takes everything else up to ``L <= 64`` and
+``dk <= 128``.
+
+With grad enabled and an input that requires grad, the call goes
+through ``_autograd.apply``: the same forward, and a backward that
+differentiates ``mlstm_chunkwise_plain`` recomputed on the same device.
+
+``launches`` counts kernel launches of either kernel (forward only),
+``row_launches`` those of the row kernel, so a run can show which
+kernel it went through.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import _build
+from repro_torch.kernels import _autograd
 
 DEFAULT_CHUNK = 64
 MAX_CHUNK = 64          # the kernel's limits (shared memory per block)
 MAX_DK = 128
+ROW_MAX_CHUNK = 32      # the row kernel's envelope (one lane per row)
+ROW_MAX_D = 64
 STABILISER_FLOOR = -1e30
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 
 launches = 0
+row_launches = 0
 
 
 def _chunk_len(T: int, chunk: int) -> int:
@@ -102,28 +120,70 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, state: Optional[State] = None,
     """The chunkwise mLSTM cell: the CUDA kernel on CUDA tensors, the
     plain version on CPU tensors.  Arguments and results as
     :func:`mlstm_chunkwise_plain`."""
-    tensors = (q, k, v, i_raw, f_raw) + tuple(state or ())
-    if all(t.device.type == "cpu" for t in tensors):
-        return mlstm_chunkwise_plain(q, k, v, i_raw, f_raw, state=state,
+    inputs = (q, k, v, i_raw, f_raw) + tuple(state or (None,) * 3)
+    if not _autograd.wants_grad(*inputs):
+        return _unflatten(_flat(*inputs, chunk=chunk,
+                                return_state=return_state))
+
+    def plain(*inputs):
+        h, s = mlstm_chunkwise_plain(*inputs[:5], state=_state(inputs),
                                      chunk=chunk, return_state=return_state)
-    return _mlstm_chunkwise_cuda(q, k, v, i_raw, f_raw, state, chunk,
-                                 return_state)
+        return (h,) + tuple(s or ())
+
+    return _unflatten(_autograd.apply(
+        lambda *x: _flat(*x, chunk=chunk, return_state=return_state),
+        plain, inputs))
 
 
-def _kernel():
-    fn = _build.load("mlstm_chunkwise").mlstm_chunkwise_launch
+def _state(inputs) -> Optional[State]:
+    return None if inputs[5] is None else tuple(inputs[5:])
+
+
+def _flat(*inputs, chunk, return_state):
+    """The forward on eight tensor slots (q, k, v, i, f, C0, n0, m0; the
+    state slots None without a state) -> (h,) or (h, C, n, m)."""
+    state = _state(inputs)
+    if all(t.device.type == "cpu" for t in inputs if t is not None):
+        h, s = mlstm_chunkwise_plain(*inputs[:5], state=state, chunk=chunk,
+                                     return_state=return_state)
+    else:
+        h, s = _mlstm_chunkwise_cuda(*inputs[:5], state, chunk, return_state)
+    return (h,) + tuple(s or ())
+
+
+def _unflatten(out):
+    return out[0], (tuple(out[1:]) if len(out) > 1 else None)
+
+
+@functools.cache
+def _kernel(entry: str):
+    """The C entry point ``entry`` of the mLSTM library, built, loaded and
+    typed once per process."""
+    fn = getattr(_build.load("mlstm_chunkwise"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int64] * 5
                    + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+def takes_row_kernel(L: int, dk: int, dv: int, dtype: torch.dtype,
+                     tensors=()) -> bool:
+    """Whether the row kernel takes a call of chunk length ``L``, head
+    dims ``dk``, ``dv`` and input dtype ``dtype`` on ``tensors``."""
+    per_row = 16 // torch.empty((), dtype=dtype).element_size()
+    return (L <= ROW_MAX_CHUNK and dk <= ROW_MAX_D and dv <= ROW_MAX_D
+            and L % per_row == 0 and dk % per_row == 0 and dv % per_row == 0
+            and all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _mlstm_chunkwise_cuda(q, k, v, i_raw, f_raw, state, chunk,
-                          return_state):
-    global launches
+                          return_state, rows: Optional[bool] = None):
+    """The CUDA path; ``rows`` None picks the kernel by shape, False takes
+    the block kernel (which takes every shape the row kernel takes)."""
+    global launches, row_launches
     inputs = (q, k, v, i_raw, f_raw)
     states = tuple(state or ())
     if q.dtype not in _DTYPE_CODE or any(t.dtype != q.dtype for t in inputs):
@@ -168,7 +228,13 @@ def _mlstm_chunkwise_cuda(q, k, v, i_raw, f_raw, state, chunk,
                      torch.empty((B, H), dtype=torch.float32, device=dev))
     if B * H == 0:
         return h, out_state
-    launch = _kernel()
+    if rows is None:
+        rows = takes_row_kernel(L, dk, dv, q.dtype, inputs)
+    elif rows and not takes_row_kernel(L, dk, dv, q.dtype, inputs):
+        raise ValueError("mlstm_chunkwise: the row kernel does not take "
+                         f"L={L}, dk={dk}, dv={dv} in {q.dtype}")
+    launch = _kernel("mlstm_rows_launch" if rows
+                     else "mlstm_chunkwise_launch")
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     s_in = states or (None, None, None)
     s_out = out_state or (None, None, None)
@@ -181,4 +247,5 @@ def _mlstm_chunkwise_cuda(q, k, v, i_raw, f_raw, state, chunk,
         raise RuntimeError(f"mlstm_chunkwise: kernel launch failed with "
                            f"cudaError {rc}")
     launches += 1
+    row_launches += rows
     return h, out_state

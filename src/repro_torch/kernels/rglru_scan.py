@@ -1,28 +1,42 @@
 """RG-LRU diagonal linear recurrence ``h_t = a_t * h_{t-1} + b_t``.
 
-``rglru_scan`` runs the hand-written CUDA kernel ``csrc/rglru_scan.cu``
-on CUDA tensors and its plain PyTorch version ``rglru_scan_plain`` on CPU
-tensors; there is no other switch.  Both compute what the Pallas kernel
+``rglru_scan`` runs the hand-written CUDA kernels of
+``csrc/rglru_scan.cu`` on CUDA tensors (a ring kernel that streams a and
+b through shared memory once, or for inputs of up to 24 MB a chunked
+kernel; ``takes_chunked_kernel`` picks by size) and its plain PyTorch
+version ``rglru_scan_plain`` on CPU tensors; there is no other switch.
+Both compute what the Pallas kernel
 ``repro/kernels/rglru_scan.py:35 _rglru_kernel`` and its oracle
-``repro/kernels/ref.py:40 rglru_scan_ref`` compute: a walk over time from
-``h = 0`` with a float32 carry, for any ``T`` and ``R``.  The result is
-written in ``out_dtype`` (default: a's dtype); the model path passes
-float32 coefficients and asks for its activation dtype, the cast its
-reference applies right after the scan (``models/rglru.py:93``).
+``repro/kernels/ref.py:40 rglru_scan_ref`` compute: a walk over time
+from ``h = 0`` with a float32 carry, for any ``T`` and ``R``.  The
+result is written in ``out_dtype`` (default: a's dtype); the model path
+passes float32 coefficients and asks for its activation dtype, the cast
+its reference applies right after the scan (``models/rglru.py:93``).
 
-``launches`` counts kernel launches, so a run can show that it went
-through the kernel.
+With grad enabled and an input that requires grad, the call goes
+through ``_autograd.apply``: the same forward, and a backward that
+differentiates ``rglru_scan_plain`` recomputed on the same device.
+
+``launches`` counts kernel launches (forward only), and
+``chunked_launches`` those of the chunked kernel, so a run can show which
+kernels it went through.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch import _build
+from repro_torch.kernels import _autograd
 
 launches = 0
+chunked_launches = 0
+# Inputs (a and b together) of up to this many bytes take the chunked
+# kernel: its second walk then finds them in the 50 MB L2.
+CHUNKED_MAX_BYTES = 24 << 20
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor,
@@ -43,13 +57,30 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """The RG-LRU recurrence: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors.  Arguments and result as
     :func:`rglru_scan_plain`."""
+    if _autograd.wants_grad(a, b):
+        return _autograd.apply(
+            lambda a, b: (_rglru_scan(a, b, out_dtype),),
+            lambda a, b: (rglru_scan_plain(a, b, out_dtype),), (a, b))[0]
+    return _rglru_scan(a, b, out_dtype)
+
+
+def _rglru_scan(a, b, out_dtype):
     if a.device.type == "cpu" and b.device.type == "cpu":
         return rglru_scan_plain(a, b, out_dtype)
     return _rglru_scan_cuda(a, b, out_dtype or a.dtype)
 
 
-def _kernel():
-    fn = _build.load("rglru_scan").rglru_scan_launch
+def takes_chunked_kernel(a: torch.Tensor) -> bool:
+    """Whether the chunked kernel takes a call on coefficients ``a`` (b
+    has a's shape and dtype); larger inputs take the ring kernel."""
+    return 2 * a.numel() * a.element_size() <= CHUNKED_MAX_BYTES
+
+
+@functools.cache
+def _kernel(entry: str):
+    """The C entry point ``entry`` of the RG-LRU library, built, loaded
+    and typed once per process."""
+    fn = getattr(_build.load("rglru_scan"), entry)
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int64] * 3
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -59,8 +90,10 @@ def _kernel():
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _rglru_scan_cuda(a, b, out_dtype):
-    global launches
+def _rglru_scan_cuda(a, b, out_dtype, chunked: Optional[bool] = None):
+    """The CUDA path; ``chunked`` None picks the kernel by size, True or
+    False takes the chunked or the ring kernel (both take every size)."""
+    global launches, chunked_launches
     if a.dtype not in _DTYPE_CODE or b.dtype != a.dtype:
         raise TypeError("rglru_scan: expects a and b both float32 or both "
                         f"bfloat16, got {a.dtype}, {b.dtype}")
@@ -80,7 +113,10 @@ def _rglru_scan_cuda(a, b, out_dtype):
     h = torch.empty((B, T, R), dtype=out_dtype, device=dev)
     if h.numel() == 0:
         return h
-    launch = _kernel()
+    if chunked is None:
+        chunked = takes_chunked_kernel(a)
+    launch = _kernel("rglru_chunked_launch" if chunked
+                     else "rglru_scan_launch")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(a.data_ptr(), b.data_ptr(), h.data_ptr(), B, T, R,
@@ -89,4 +125,5 @@ def _rglru_scan_cuda(a, b, out_dtype):
         raise RuntimeError(f"rglru_scan: kernel launch failed with "
                            f"cudaError {rc}")
     launches += 1
+    chunked_launches += chunked
     return h

@@ -229,8 +229,12 @@ def test_lane_kernel_zero_lanes_and_limits(cuda):
 
 # (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
 # the golden dataset's batch, tests/test_kernels.py's shapes in both
-# dtypes, T = L, dv not a multiple of the kernel's 32-column slice, a
-# given initial state, and the kernel's limits (L = 64, dk = 128).
+# dtypes, T = L, dv not a multiple of the block kernel's 32-column slice,
+# a given initial state, and the block kernel's limits (L = 64, dk =
+# 128); then the row kernel's envelope from both sides: L = 32 with
+# dk = dv = 64 and a state in and out, several chunks with a state, an
+# odd number of (b, h) at L <= 16 (two a warp), bfloat16 with a state,
+# and just outside it (dk not a whole 16-byte row, dk = 96, L = 64).
 MLSTM_CASES = (
     (8668, 2, 16, 32, 32, 64, "float32", False),
     (1, 1, 128, 64, 64, 64, "float32", False),
@@ -241,6 +245,14 @@ MLSTM_CASES = (
     (2, 2, 64, 32, 48, 16, "float32", False),
     (3, 1, 32, 24, 20, 16, "float32", True),
     (1, 2, 128, 128, 64, 64, "float32", True),
+    (5, 3, 96, 64, 64, 32, "float32", True),
+    (64, 2, 64, 32, 32, 16, "float32", True),
+    (7, 1, 16, 32, 32, 64, "float32", False),
+    (7, 1, 16, 32, 32, 64, "bfloat16", False),
+    (3, 3, 48, 16, 24, 16, "bfloat16", True),
+    (1, 2, 32, 18, 36, 16, "float32", True),
+    (2, 1, 32, 96, 32, 32, "float32", False),
+    (3, 2, 64, 32, 32, 64, "bfloat16", True),
 )
 # tests/test_kernels.py:160's tolerances: float32 sums in another order,
 # bfloat16 outputs rounded.
@@ -272,12 +284,15 @@ def _mlstm_inputs(case, device):
 def test_mlstm_kernel_matches_plain_on_cuda(cuda, case):
     inputs, state = _mlstm_inputs(case, cuda)
     chunk, dtype = case[5], case[6]
-    before = mlstm.launches
+    rows = mlstm.takes_row_kernel(min(chunk, case[2]), case[3], case[4],
+                                  getattr(torch, dtype), inputs)
+    before = (mlstm.launches, mlstm.row_launches)
     h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk)
     h_only, none = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk,
                                          return_state=False)
     torch.cuda.synchronize()
-    assert mlstm.launches == before + 2 and none is None
+    assert mlstm.launches == before[0] + 2 and none is None
+    assert mlstm.row_launches == before[1] + 2 * rows
     want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
                                                  chunk=chunk)
     assert h.dtype == want_h.dtype == getattr(torch, dtype)
@@ -286,6 +301,26 @@ def test_mlstm_kernel_matches_plain_on_cuda(cuda, case):
     for got, want in zip(s, want_s):
         assert got.dtype == torch.float32
         torch.testing.assert_close(got, want, **TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    c for c in MLSTM_CASES if mlstm.takes_row_kernel(
+        min(c[2], c[5]), c[3], c[4], getattr(torch, c[6]))])
+def test_mlstm_both_kernels_agree_in_the_row_envelope(cuda, case):
+    """Each shape the row kernel takes, through it and through the block
+    kernel: both match the plain version, h and the final state."""
+    inputs, state = _mlstm_inputs(case, cuda)
+    chunk, dtype = case[5], case[6]
+    want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
+                                                 chunk=chunk)
+    for rows in (True, False):
+        h, s = mlstm._mlstm_chunkwise_cuda(*inputs, state, chunk, True,
+                                           rows=rows)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(h.float(), want_h.float(), **TOL[dtype])
+        for got, want in zip(s, want_s):
+            torch.testing.assert_close(got, want, **TOL[dtype])
 
 
 @pytest.mark.gpu
@@ -299,6 +334,9 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="dk <= 128"):
         big, _ = _mlstm_inputs((1, 1, 16, 384, 8, 16, "float32", False), cuda)
         mlstm.mlstm_chunkwise(*big)
+    with pytest.raises(ValueError, match="row kernel"):
+        odd, _ = _mlstm_inputs((1, 1, 16, 18, 8, 16, "float32", False), cuda)
+        mlstm._mlstm_chunkwise_cuda(*odd, None, 16, True, rows=True)
 
 
 def _digest(data) -> str:
@@ -338,7 +376,10 @@ def test_forecaster_reproduces_golden_fixture_on_cuda(cuda):
 
 # (B, T, R, input dtype, output dtype): T = 1, the serving shape (float32
 # coefficients, bfloat16 out), T and R not multiples of any block, B > 1,
-# bfloat16 inputs.
+# bfloat16 inputs; inputs under 24 MB take the chunked kernel, the rest
+# the ring kernel: T spanning many tiles (8191 steps, B 4), R not a
+# multiple of its 32 channels, rows not whole 16-byte pieces (R 2051 in
+# bfloat16), T shorter than one 64-step tile and bfloat16 in and out.
 RGLRU_CASES = (
     (1, 1, 4096, "float32", "float32"),
     (1, 3072, 4096, "float32", "bfloat16"),
@@ -346,10 +387,20 @@ RGLRU_CASES = (
     (2, 33, 4096, "bfloat16", "bfloat16"),
     (2, 200, 257, "bfloat16", "float32"),
     (1, 15, 31, "float32", "bfloat16"),
+    (4, 8191, 256, "float32", "float32"),
+    (1, 3072, 4096, "float32", "float32"),
+    (2, 100, 72, "bfloat16", "bfloat16"),
+    (3, 130, 33, "bfloat16", "float32"),
+    (1, 63, 4096, "float32", "bfloat16"),
+    (2, 700, 96, "bfloat16", "float32"),
+    (2, 1600, 2051, "bfloat16", "float32"),
+    (1, 2000, 4096, "bfloat16", "bfloat16"),
+    (1, 40, 160000, "float32", "bfloat16"),
 )
-# The kernel chains its time chunks' carries in another order than the
-# sequential walk (float32 rounding); a bfloat16 output may then round
-# one ulp apart.
+# The tolerances of the earlier chunked kernel, which chained its time
+# chunks' carries in another order than the sequential walk (float32
+# rounding; a bfloat16 output may then round one ulp apart).  The
+# kernel now walks the oracle's own sequence of operations.
 RGLRU_TOL = {"float32": dict(atol=1e-5, rtol=1e-5),
              "bfloat16": dict(atol=1e-2, rtol=1e-2)}
 
@@ -364,17 +415,54 @@ def _rglru_inputs(case, device):
 
 
 @pytest.mark.gpu
+def test_rglru_kernel_takes_unaligned_inputs(cuda):
+    """Inputs that start 4 bytes past a 16-byte boundary, large enough
+    for the ring kernel, take its ring filled by element loads."""
+    a, b = _rglru_inputs((1, 900, 4096, "float32", "float32"), cuda)
+    shifted = [torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+               for x in (a, b)]
+    for dst, src in zip(shifted, (a, b)):
+        dst.copy_(src)
+    assert shifted[0].data_ptr() % 16 == 4
+    h = rglru.rglru_scan(*shifted)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h, rglru.rglru_scan_plain(a, b),
+                               **RGLRU_TOL["float32"])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", RGLRU_CASES)
 def test_rglru_kernel_matches_plain_on_cuda(cuda, case):
     a, b = _rglru_inputs(case, cuda)
     out_dtype = getattr(torch, case[4])
-    before = rglru.launches
+    before = (rglru.launches, rglru.chunked_launches)
     h = rglru.rglru_scan(a, b, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    assert rglru.launches == before + 1
+    assert rglru.launches == before[0] + 1
+    assert rglru.chunked_launches == (before[1]
+                                      + rglru.takes_chunked_kernel(a))
     want = rglru.rglru_scan_plain(a, b, out_dtype=out_dtype)
     assert h.dtype == want.dtype == out_dtype
     torch.testing.assert_close(h.float(), want.float(), **RGLRU_TOL[case[4]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [768, 769])
+def test_rglru_both_kernels_agree_at_the_size_boundary(cuda, T):
+    """Inputs of exactly 24 MB (T 768 at R 4096 in float32) take the
+    chunked kernel, one step more the ring kernel; each size through
+    both kernels matches the plain version."""
+    a, b = _rglru_inputs((1, T, 4096, "float32", "bfloat16"), cuda)
+    assert rglru.takes_chunked_kernel(a) == (T == 768)
+    want = rglru.rglru_scan_plain(a, b, out_dtype=torch.bfloat16)
+    for chunked in (True, False):
+        before = (rglru.launches, rglru.chunked_launches)
+        h = rglru._rglru_scan_cuda(a, b, torch.bfloat16, chunked=chunked)
+        torch.cuda.synchronize()
+        assert rglru.launches == before[0] + 1
+        assert rglru.chunked_launches == before[1] + chunked
+        torch.testing.assert_close(h.float(), want.float(),
+                                   **RGLRU_TOL["bfloat16"])
 
 
 # (B, Hq, Hkv, T, S, hd, causal, window, dtype): tests/test_kernels.py's
@@ -451,6 +539,83 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
                               k, v)
     with pytest.raises(TypeError):
         flash.flash_attention(q.bfloat16(), k, v)
+
+
+def _check_grads(module, kernel_fn, plain_fn, inputs, tol, seed=0):
+    """The wrapper's result from grad-requiring inputs has a grad_fn and
+    counts one launch; its gradients, for a seeded cotangent on every
+    output, match autograd through the plain version; with grad off the
+    wrapper still launches the kernel once and records nothing."""
+    inputs = [None if t is None else t.detach().requires_grad_()
+              for t in inputs]
+    given = [t for t in inputs if t is not None]
+    before = module.launches
+    got = kernel_fn(*inputs)
+    torch.cuda.synchronize()
+    assert module.launches == before + 1
+    assert all(o.grad_fn is not None for o in got)
+    rng = np.random.default_rng(seed)
+    cots = [torch.tensor(rng.standard_normal(o.shape), dtype=o.dtype,
+                         device=o.device) for o in got]
+    want = plain_fn(*inputs)
+    for o, w in zip(got, want):
+        torch.testing.assert_close(o.float(), w.float(), **tol)
+    grads = torch.autograd.grad(got, given, cots)
+    want_grads = torch.autograd.grad(want, given, cots)
+    for g, w in zip(grads, want_grads):
+        torch.testing.assert_close(g.float(), w.float(), **tol)
+    with torch.no_grad():
+        again = kernel_fn(*inputs)
+    assert module.launches == before + 2
+    assert all(o.grad_fn is None for o in again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(2, 300, 96, "float32", "float32"),
+                                  (1, 3072, 1536, "float32", "bfloat16"),
+                                  (2, 130, 33, "bfloat16", "bfloat16")])
+def test_rglru_gradients_on_cuda_match_plain(cuda, case):
+    od = getattr(torch, case[4])
+    _check_grads(rglru, lambda a, b: (rglru.rglru_scan(a, b, od),),
+                 lambda a, b: (rglru.rglru_scan_plain(a, b, od),),
+                 _rglru_inputs(case, cuda), RGLRU_TOL[case[4]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (1, 4, 2, 256, 256, 64, True, 64, "float32"),
+    (1, 4, 1, 200, 200, 256, True, 0, "bfloat16"),
+    (2, 2, 2, 130, 130, 64, False, 0, "bfloat16")])
+def test_flash_gradients_on_cuda_match_plain(cuda, case):
+    causal, window = case[6], case[7]
+    _check_grads(flash,
+                 lambda q, k, v: (flash.flash_attention(
+                     q, k, v, causal=causal, window=window),),
+                 lambda q, k, v: (flash.flash_attention_plain(
+                     q, k, v, causal=causal, window=window),),
+                 _flash_inputs(case, cuda), FLASH_TOL[case[8]])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [
+    (64, 2, 16, 32, 32, 64, "float32", False),
+    (3, 1, 32, 24, 20, 16, "float32", True),
+    (64, 2, 64, 32, 32, 16, "float32", True),
+    (2, 2, 64, 32, 32, 64, "float32", True),
+    (4, 2, 32, 32, 32, 16, "bfloat16", False)])
+def test_mlstm_gradients_on_cuda_match_plain(cuda, case):
+    inputs, state = _mlstm_inputs(case, cuda)
+    chunk = case[5]
+
+    def run(fn):
+        def call(q, k, v, i, f, *s):
+            h, out = fn(q, k, v, i, f, state=tuple(s) or None, chunk=chunk)
+            return (h,) + tuple(out)
+        return call
+
+    _check_grads(mlstm, run(mlstm.mlstm_chunkwise),
+                 run(mlstm.mlstm_chunkwise_plain),
+                 list(inputs) + list(state or ()), TOL[case[6]])
 
 
 SERVE_GOLDEN = Path(__file__).resolve().parent / "data" / "torch_serve_golden"

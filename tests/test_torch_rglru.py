@@ -92,6 +92,21 @@ def test_plain_scan_dtypes():
     assert port_scan.launches == before          # CPU: no kernel
 
 
+@pytest.mark.parametrize("T, chunked", [(768, True), (769, False)])
+def test_kernel_choice_by_input_size(T, chunked):
+    """Inputs (a and b) of up to 24 MB take the chunked kernel, larger
+    ones the ring kernel; the choice follows the bytes, so bfloat16
+    inputs of twice the steps choose alike.  The CPU path launches
+    neither."""
+    for dtype, steps in ((torch.float32, T), (torch.bfloat16, 2 * T)):
+        a = torch.empty((1, steps, 4096), dtype=dtype)
+        assert port_scan.takes_chunked_kernel(a) == chunked
+    before = (port_scan.launches, port_scan.chunked_launches)
+    a, b = (torch.from_numpy(x) for x in _ab(1, 3, 8))
+    port_scan.rglru_scan(a, b)
+    assert (port_scan.launches, port_scan.chunked_launches) == before
+
+
 def test_softplus_is_jaxs_everywhere():
     x = np.linspace(-60, 60, 2001).astype(np.float32)
     np.testing.assert_allclose(
