@@ -87,6 +87,15 @@ class ArchConfig:
     kv_quant: bool = False
     pad_heads_to: int = 0
 
+    # memory shape knobs (0 = off), read by training.  ce_chunk: the
+    # fused LM-head + cross-entropy over sequence chunks
+    # (repro_torch/train/losses.py chunked_ce), so the full (B, T, V)
+    # logits never exist.  train_accum: gradient-accumulation
+    # microbatches at train_4k.  (The reference's attn_chunk is not
+    # carried: the port's attention is the flash kernel at every length.)
+    ce_chunk: int = 0
+    train_accum: int = 1
+
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "float32"

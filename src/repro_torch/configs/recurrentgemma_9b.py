@@ -4,10 +4,8 @@
 38 layers, d_model 4096, 16 query heads with one kv head (MQA), head_dim
 256, d_ff 12288 GeGLU (tanh), d_rnn 4096, conv width 4, sliding window
 2048, vocab 256000, tied embeddings scaled by sqrt(d_model).  Pattern:
-(rglru, rglru, local_attn) × 12 + 2 trailing rglru blocks.  The
-reference's memory knobs (``attn_chunk``, ``ce_chunk``) and training
-knob (``train_accum``) change no number of the serving path and are
-left out.
+(rglru, rglru, local_attn) × 12 + 2 trailing rglru blocks.  Training
+reads the reference's ``ce_chunk`` (1024) and ``train_accum`` (2).
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -28,6 +26,8 @@ CONFIG = ArchConfig(
     act="gelu_tanh",
     tie_embeddings=True,
     rope_theta=10_000.0,
+    ce_chunk=1024,
+    train_accum=2,
     source="arXiv:2402.19427; hf:google/recurrentgemma-9b",
 )
 

@@ -9,6 +9,8 @@ whose backward recomputes the plain version on the same device and
 returns ``torch.autograd.grad`` of it.  A wrapper calls :func:`apply`
 only when :func:`wants_grad` holds, so serving and forecasting (grad off,
 or no input requiring grad) call the kernel directly and pay nothing.
+Each backward runs inside a ``torch.profiler.record_function`` range
+named ``PLAIN_BACKWARD``.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 Outputs = Tuple[torch.Tensor, ...]
+# The profiler range around each backward: a trace splits a training
+# step's device time into this recompute and the rest by it.
+PLAIN_BACKWARD = "repro_torch.plain_backward"
 
 
 def wants_grad(*tensors: Optional[torch.Tensor]) -> bool:
@@ -39,6 +44,11 @@ class _PlainBackward(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
+        with torch.profiler.record_function(PLAIN_BACKWARD):
+            return _PlainBackward._backward(ctx, *grads)
+
+    @staticmethod
+    def _backward(ctx, *grads):
         needs = ctx.needs_input_grad[2:]
         with torch.enable_grad():
             inputs = [None if t is None else t.detach().requires_grad_(need)

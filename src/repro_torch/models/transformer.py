@@ -4,16 +4,22 @@ separate LM head.
 
 Three modes share one block implementation:
 
-  * ``forward_train`` — full-sequence teacher forcing, forward only;
-    returns (logits, aux) with aux = 0 (no MoE is ported);
+  * ``forward_train`` / ``forward_hidden`` — full-sequence teacher
+    forcing, differentiable; return (logits or the final-normed hidden
+    state, aux) with aux = 0 (no MoE is ported).  With ``remat`` (the
+    default) and grad enabled, each superblock runs under
+    ``torch.utils.checkpoint`` (``use_reentrant=False``), as the
+    reference wraps its scanned superblock in ``jax.checkpoint``: the
+    backward reruns its forward, kernels included;
   * ``prefill``       — full sequence + per-layer decode state;
   * ``decode_step``   — one new token against the decode state.
 
 Segments with ``repeats > 1`` keep parameters and decode state stacked
 on a leading layer axis (the reference scans them); the port walks the
-layer axis in a Python loop.  ``decode_step`` updates the decode state
-in place, layer by layer, as the reference's write-back chain does
-(``transformer.py:447-460``), and returns the same object.
+layer axis in a Python loop, and a layer's parameters are views into the
+stacked leaves, so gradients land in them.  ``decode_step`` updates the
+decode state in place, layer by layer, as the reference's write-back
+chain does (``transformer.py:447-460``), and returns the same object.
 
 Mixers ``attn``, ``local_attn`` and ``rglru`` and the ``dense`` MLP are
 ported; the others, cross attention, parallel blocks and the modality
@@ -24,6 +30,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED, ArchConfig, BlockSpec, Segment
 from repro_torch.models import layers, rglru
@@ -212,13 +219,25 @@ def _segment_layers(seg: Segment, seg_p):
 
 
 def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
-                     causal: bool = True):
+                     causal: bool = True, remat: bool = True
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decoder tower over a whole sequence: (x, aux).  With ``remat``
+    and grad enabled each superblock is checkpointed."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_p in zip(plan, segments_p):
-        for layer_p in _segment_layers(seg, seg_p):
+        def superblock(xx, layer_p, seg=seg):
             for j, blk in enumerate(seg.blocks):
-                x = apply_block(blk, layer_p[f"block{j}"], x, cfg,
-                                positions=positions, causal=causal)
-    return x
+                xx = apply_block(blk, layer_p[f"block{j}"], xx, cfg,
+                                 positions=positions, causal=causal)
+            return xx
+
+        for layer_p in _segment_layers(seg, seg_p):
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(superblock, x, layer_p, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = superblock(x, layer_p)
+    return x, aux
 
 
 def _stack(trees: List):
@@ -290,14 +309,33 @@ def _positions(B: int, T: int, device) -> torch.Tensor:
                         device=device)[None].expand(B, T)
 
 
-def forward_train(params, batch: Dict, cfg: ArchConfig
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Teacher forcing, forward only.  Returns (logits (B,T,Vp), aux)."""
+def forward_hidden(params, batch: Dict, cfg: ArchConfig, *,
+                   remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tower up to and including the final norm: (x (B,T,D), aux).
+    The fused chunked cross-entropy reads it and never builds the full
+    logits."""
     x = _embed_inputs(params, batch, cfg)
     B, T, _ = x.shape
-    x = _run_tower_train(params["segments"], cfg.layer_plan(), x, cfg,
-                         _positions(B, T, x.device))
-    return _lm_logits(params, x, cfg), torch.zeros((), device=x.device)
+    x, aux = _run_tower_train(params["segments"], cfg.layer_plan(), x, cfg,
+                              _positions(B, T, x.device), remat=remat)
+    return layers.apply_norm(params["final_norm"], x, cfg), aux
+
+
+def head_weights(params, cfg: ArchConfig) -> torch.Tensor:
+    """The (D, Vp) output projection (a view of the embedding when tied)."""
+    if cfg.tie_embeddings:
+        return params["embed"].T
+    return params["lm_head"]
+
+
+def forward_train(params, batch: Dict, cfg: ArchConfig, *,
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Teacher forcing.  Returns (logits (B,T,Vp), aux)."""
+    x = _embed_inputs(params, batch, cfg)
+    B, T, _ = x.shape
+    x, aux = _run_tower_train(params["segments"], cfg.layer_plan(), x, cfg,
+                              _positions(B, T, x.device), remat=remat)
+    return _lm_logits(params, x, cfg), aux
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,

@@ -1,1 +1,3 @@
-"""Training-side pieces of the port (so far the checkpoint reader)."""
+"""Training side of the port: synthetic data, AdamW, losses, the train
+step, the checkpoint writer and reader, the ``Trainer``, and the replay
+of the train fixture (``golden``)."""

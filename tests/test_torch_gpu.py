@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels, the lane engine, the
-forecaster and the RecurrentGemma serving path on CUDA.
+forecaster, the RecurrentGemma serving path and the training path on
+CUDA.
 
 Every test here is marked ``gpu`` and skips itself without a CUDA card
 (the kernels have no CPU mode).  On the card::
@@ -670,3 +671,107 @@ def test_serve_golden_fixture_on_cuda(cuda):
     for r, want in zip(reqs, fx["engine_tokens"]):
         assert r.tokens == [int(t) for t in want if t >= 0]
     assert flash.launches > before[0] and rglru.launches > before[1]
+
+
+TRAIN_GOLDEN = Path(__file__).resolve().parent / "data" / \
+    "torch_train_golden.npz"
+# The train step on the card against the plain path on the CPU, float32,
+# the same parameters and batches: cuBLAS and the kernels sum in other
+# orders than the CPU, so the bounds of tests/test_torch_train.py's
+# float32 twin against JAX.
+TRAIN_TOL = dict(loss=1e-5, grad_norm=1e-4, update_rel=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layers,accum,ce_chunk", [(3, 1, 0), (6, 2, 8)])
+def test_train_step_on_cuda_matches_cpu(cuda, layers, accum, ce_chunk):
+    """Three AdamW steps of the float32 RecurrentGemma twin through
+    ``make_train_step`` on the card and on the CPU from the same
+    parameters; under grad the forward launches each kernel (twice per
+    block with remat)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import leaves_with_paths, map_tree
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.golden import update_rel
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", tiny=True),
+                              dtype="float32", num_layers=layers,
+                              ce_chunk=ce_chunk)
+    cpu = ts.init_train_state(torch.Generator().manual_seed(0), cfg, "cpu")
+    p0 = {"/".join(map(str, k)): t.numpy().copy()
+          for k, t in leaves_with_paths(cpu.params)}
+    gpu_p = map_tree(lambda _, t: t.to(cuda), cpu.params)
+    gpu = ts.TrainState(gpu_p, init_opt_state(gpu_p))
+    step = ts.make_train_step(cfg, OptimizerConfig(
+        learning_rate=1e-2, warmup_steps=2, total_steps=10), accum=accum)
+    data = SyntheticLM(cfg, DataConfig(batch_size=2, seq_len=32,
+                                       accum=accum))
+    attn_blocks, rnn_blocks = layers // 3, 2 * (layers // 3)
+    for s in range(3):
+        batch = {k: torch.from_numpy(v) for k, v in data.batch(s).items()}
+        cpu, mc = step(cpu, batch)
+        before = (flash.launches, rglru.launches)
+        gpu, mg = step(gpu, {k: v.to(cuda) for k, v in batch.items()})
+        assert flash.launches - before[0] == 2 * attn_blocks * accum
+        assert rglru.launches - before[1] == 2 * rnn_blocks * accum
+        for k in ("loss", "grad_norm"):
+            assert float(mg[k]) == pytest.approx(float(mc[k]),
+                                                 rel=TRAIN_TOL[k])
+        assert float(mg["lr"]) == float(mc["lr"])
+    want = {"/".join(map(str, k)): t.numpy()
+            for k, t in leaves_with_paths(cpu.params)}
+    got = {"/".join(map(str, k)): t.cpu().numpy()
+           for k, t in leaves_with_paths(gpu.params)}
+    assert update_rel(p0, want, got) <= TRAIN_TOL["update_rel"]
+    assert int(gpu.opt.step) == 3
+
+
+@pytest.mark.gpu
+def test_train_golden_fixture_on_cuda(cuda):
+    """What chip_smoke.py's train_golden runs: JAX's 3 steps of the
+    3-layer float32 twin (tests/test_torch_train.py makes the fixture),
+    replayed on the card through both kernels."""
+    from repro_torch.train import golden
+    with np.load(TRAIN_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    before = (flash.launches, rglru.launches)
+    r = golden.replay(fx, cuda)
+    assert flash.launches > before[0] and rglru.launches > before[1]
+    assert max(r["worst_share_of_tol"].values()) <= 1.0
+
+
+@pytest.mark.gpu
+def test_trainer_and_forecaster_train_on_cuda(cuda, tmp_path):
+    """``Trainer`` with a checkpoint and resume, and ``train_forecaster``
+    with its mLSTM cell on the row kernel, on the card by default."""
+    from repro_torch.configs import get_config
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", tiny=True),
+                              num_layers=6, ce_chunk=8)
+
+    def make():
+        return Trainer(cfg, OptimizerConfig(learning_rate=1e-3,
+                                            warmup_steps=2, total_steps=4),
+                       DataConfig(batch_size=2, seq_len=32, accum=2),
+                       TrainerConfig(total_steps=4, checkpoint_every=2,
+                                     checkpoint_dir=str(tmp_path),
+                                     log_every=1), log_fn=lambda s: None)
+
+    tr = make()
+    assert tr.state.params["embed"].device.type == "cuda"
+    assert tr.run()["completed"] == 1.0
+    back = make()
+    assert back.step == 4 and torch.equal(back.state.params["embed"],
+                                          tr.state.params["embed"])
+    data = features.make_dataset(FAMILIES[:3], range(6),
+                                 features.WindowConfig())
+    before = mlstm.row_launches
+    res = model.train_forecaster(data["X_train"], data["y_train"],
+                                 window=features.WindowConfig(), steps=10,
+                                 X_val=data["X_val"], y_val=data["y_val"])
+    assert res.params["w_in"].device.type == "cuda"
+    assert mlstm.row_launches - before == 11
+    assert np.isfinite(res.losses).all() and np.isfinite(res.val_mse)
