@@ -33,12 +33,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the forecaster's shape over the golden dataset's 8668 windows, the
    JAX kernel test's shapes in both dtypes, T = L, dv not a multiple of
    32, a given initial state and the returned final state, the row
-   kernel's envelope from both sides and the forecaster's training batch
-   (B 64) (each case through the kernel the
+   kernel's envelope from both sides, xLSTM-125M's 384-wide heads (the
+   serving prefill's shape (1, 4, 3072, 384) bfloat16 with the state out,
+   float32 with a state in and out, T = L = 64 in both dtypes) and the
+   forecaster's training batch (B 64) (each case through the kernel the
    wrapper picks; both kernels must be reached); at the forecaster's
-   shape the row kernel, the block kernel (the PR 12 design) and the
-   plain version timed by CUDA events with the launches queued behind a
-   device sleep, beside the bound;
+   shape the row kernel, the block kernel and the plain version, and at
+   xLSTM's prefill shape the block kernel and the plain version, timed by
+   CUDA events with the launches queued behind a device sleep, beside
+   the bound;
 7. forecast golden — ``load_forecaster`` on the fixture
    ``tests/data/torch_forecaster_golden`` (a forecaster trained and
    saved by the JAX package, and its outputs): the dataset rebuilt with
@@ -84,10 +87,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    logits for a request past the window;
 13. grad   — one backward through each of flash attention, the RG-LRU
    scan and the mLSTM cell at each of its main paths' shapes (serving and
-   training; the forecaster's inference and training): the wrapper launches
-   its kernel once through its ``autograd.Function``, and the gradients
-   for a seeded cotangent match autograd through the plain version at the
-   forward's tolerance;
+   training; the forecaster's inference and training, xLSTM's prefill):
+   the wrapper launches its kernel once through its
+   ``autograd.Function``, and the gradients for a seeded cotangent match
+   autograd through the plain version at the forward's tolerance;
 14. train golden — the fixture ``tests/data/torch_train_golden.npz``
    (JAX's 3 AdamW steps of a 3-layer float32 RecurrentGemma twin, accum
    2, chunked cross-entropy): ``make_train_step`` on the card from its
@@ -110,7 +113,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and the rest; then a trainer checkpointing every 2 steps, preempted
    by ``request_stop`` after step 2 (its 26.8 GB checkpoint is the one
    the phase writes), and one resumed from that checkpoint, whose
-   losses must equal (``==``) the uninterrupted run's.
+   losses must equal (``==``) the uninterrupted run's;
+17. xlstm golden — the fixture ``tests/data/torch_xlstm_serve_golden``
+   (a float32 xLSTM-125M twin at full width cut to 8 layers, its
+   parameters redrawn from the fixture's seed and checked by digest;
+   JAX's prefill and decode logits and greedy engine tokens): the port
+   on the card through the mLSTM block kernel at dk 384 reproduces them
+   (``repro_torch.serve.golden.replay``);
+18. xlstm serve main — full-width xLSTM-125M (12 layers, 184.2 M
+   parameters drawn on the card in bfloat16 from a seeded CUDA
+   generator) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
+   greedy, 16 requests at t = 0 with prompts of 64 × [4, 48] tokens and
+   64 new tokens each, through ``run_server``: tokens/s, mean TTFT,
+   prefill ms by prompt length, decode step ms, peak device memory, the
+   mLSTM block kernel's launches (the run fails without them), profiled
+   windows of decode steps and of one prefill, one sLSTM layer's prefill
+   walk, and decode logits against teacher-forced ``forward_train``
+   logits for the longest prompt.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -206,13 +225,21 @@ def _call_ms(torch, fn, iters: int, warmup: int = 20) -> float:
 
 def _device_events(prof):
     """(name, start_us, end_us) of every device-side event (kernels,
-    copies, fills) that torch.profiler recorded, without the profiler's
-    own ``ProfilerStep#N`` spans, which it also places on the device
-    timeline and which cover whole steps."""
+    copies, fills) that torch.profiler recorded, without user annotations
+    and the profiler's own ``ProfilerStep#N`` spans, which it also places
+    on the device timeline and which cover whole steps.  Reads kineto's
+    raw events: ``prof.events()`` builds the whole event tree, which takes
+    minutes for a window of 10^5 kernels (an xLSTM prefill)."""
     from torch.autograd import DeviceType
-    return [(ev.name, ev.time_range.start, ev.time_range.end)
-            for ev in prof.events() if ev.device_type == DeviceType.CUDA
-            and not ev.name.startswith("ProfilerStep")]
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA or ev.is_user_annotation():
+            continue
+        name = ev.name()
+        if not name.startswith("ProfilerStep"):
+            start = ev.start_ns() * 1e-3
+            out.append((name, start, start + ev.duration_ns() * 1e-3))
+    return out
 
 
 def _timed_ms(torch, fn, iters: int, warmup: int) -> dict:
@@ -623,6 +650,10 @@ def phase_main(torch, np, dev) -> dict:
 # (train_forecaster's default), the last case of MLSTM_CASES and the
 # training shape of phase 13's gradient check.
 MLSTM_TRAIN_CASE = (64, 2, 16, 32, 32, 64, "float32", False)
+# xLSTM-125M's prefill of the serve cell's longest prompt (phase 18): q,
+# k, v (1, 4, 3072, 384) bfloat16, chunk 64, the final state out; timed
+# in phase 6 and the serving shape of phase 13's gradient check.
+MLSTM_XLSTM_CASE = (1, 4, 3072, 384, 384, 64, "bfloat16", False)
 
 # (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
 # the golden dataset's batch (the main path's call; first), the JAX kernel
@@ -630,8 +661,10 @@ MLSTM_TRAIN_CASE = (64, 2, 16, 32, 32, 64, "float32", False)
 # kernel's 32-column slice, a given initial state, and the block kernel's
 # limits; then the row kernel's envelope (L = 32 with dk = dv = 64,
 # several chunks with a state in and out, an odd count of (b, h) two to a
-# warp, bfloat16 with a state) and a dk just outside it; last, the
-# forecaster's training shape.
+# warp, bfloat16 with a state) and a dk just outside it; xLSTM-125M's
+# 384-wide heads (the serving prefill's shape, MLSTM_XLSTM_CASE, with the
+# state out; float32 with a state in and out; T = L = 64 in both
+# dtypes); last, the forecaster's training shape.
 MLSTM_CASES = (
     (8668, 2, 16, 32, 32, 64, "float32", False),
     (1, 1, 128, 64, 64, 64, "float32", False),
@@ -647,6 +680,10 @@ MLSTM_CASES = (
     (7, 1, 16, 32, 32, 64, "bfloat16", False),
     (3, 3, 48, 16, 24, 16, "bfloat16", True),
     (1, 2, 32, 18, 36, 16, "float32", True),
+    MLSTM_XLSTM_CASE,
+    (2, 4, 256, 384, 384, 64, "float32", True),
+    (1, 4, 64, 384, 384, 64, "float32", False),
+    (1, 4, 64, 384, 384, 64, "bfloat16", False),
     MLSTM_TRAIN_CASE,
 )
 
@@ -684,6 +721,12 @@ def _mlstm_work(B, H, T, dk, dv, L, elem_bytes):
     return nbytes, ops
 
 
+def _mlstm_state_work(B, H, dk, dv, L):
+    """(bytes, float operations) that asking for the final state adds:
+    C, n and m written once in float32, and the last chunk's C update."""
+    return B * H * (dk * dv + dk + 1) * 4, B * H * 2 * L * dk * dv
+
+
 def phase_mlstm(torch, np, dev) -> dict:
     from repro_torch.kernels import mlstm_chunkwise as mlstm
     results = {}
@@ -705,6 +748,7 @@ def phase_mlstm(torch, np, dev) -> dict:
                                       getattr(torch, dtype), inputs)
         results[name] = {
             "dtype": dtype, "state_in": with_state, "match": ok,
+            "dk": dk,
             "kernel": "mlstm_rows" if rows else "mlstm_chunkwise",
             "max_abs_err_h": float((pairs[0][0] - pairs[0][1]).abs().max()),
             "max_abs_err_state": max(float((a - b).abs().max())
@@ -723,8 +767,8 @@ def phase_mlstm(torch, np, dev) -> dict:
     if not row_launches or not block_launches:
         raise SystemExit("mlstm cases did not reach both kernels")
     # The forecaster's shape: the row kernel (the wrapper's pick), the
-    # block kernel (the PR 12 design, still the kernel outside the row
-    # kernel's envelope) on the same inputs, and the plain version, each
+    # block kernel (the kernel outside the row kernel's envelope, which
+    # takes xLSTM's heads) on the same inputs, and the plain version, each
     # timed by CUDA events behind a device sleep.
     case = MLSTM_CASES[0]
     B, H, T, dk, dv, chunk = case[:6]
@@ -757,6 +801,35 @@ def phase_mlstm(torch, np, dev) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
+    # xLSTM-125M's prefill shape: the block kernel (the wrapper's pick)
+    # and the plain version, with the state out, as the serving path
+    # calls them.
+    B, H, T, dk, dv, chunk = MLSTM_XLSTM_CASE[:6]
+    x_inputs, _ = _mlstm_inputs(torch, np, MLSTM_XLSTM_CASE, dev)
+    x_timed = {
+        "kernel": _queued_ms(torch, lambda: mlstm.mlstm_chunkwise(
+            *x_inputs, chunk=chunk), 20, warmup=3),
+        "plain": _queued_ms(torch, lambda: mlstm.mlstm_chunkwise_plain(
+            *x_inputs, chunk=chunk), 5, warmup=2)}
+    nbytes, ops = (a + b for a, b in zip(
+        _mlstm_work(B, H, T, dk, dv, min(chunk, T), 2),
+        _mlstm_state_work(B, H, dk, dv, min(chunk, T))))
+    x_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    x_ops_ms = ops / FP32_OPS_PER_S * 1e3
+    x_bound = max(x_bytes_ms, x_ops_ms)
+    xlstm = {"shape": [B, H, T, dk, dv], "chunk": min(chunk, T),
+             "dtype": MLSTM_XLSTM_CASE[6], "state_out": True,
+             "kernel": "mlstm_chunkwise",
+             "kernel_ms": x_timed["kernel"]["ms"],
+             "plain_ms": x_timed["plain"]["ms"], "library_ms": None,
+             "timed": x_timed, "bytes": nbytes, "flops": ops,
+             "bound_ms": x_bound,
+             "bound_by": "bytes" if x_bytes_ms >= x_ops_ms else "operations",
+             "share_of_bound": x_bound / x_timed["kernel"]["ms"],
+             "max_abs_err": max(
+                 max(r["max_abs_err_h"], r["max_abs_err_state"])
+                 for r in results.values() if r["dk"] == dk)}
+    del x_inputs
     f32 = [r for r in results.values() if r["dtype"] == "float32"]
     line = {"phase": "mlstm", "cases": results, "tolerance": MLSTM_TOL,
             "shape": [B, H, T, dk, dv], "chunk": L,
@@ -780,7 +853,8 @@ def phase_mlstm(torch, np, dev) -> dict:
                 for kernel in ("mlstm_rows", "mlstm_chunkwise")},
             "max_abs_err_bf16": max(r["max_abs_err_h"] for r in
                                     results.values()
-                                    if r["dtype"] == "bfloat16")}
+                                    if r["dtype"] == "bfloat16"),
+            "xlstm": xlstm}
     emit(line)
     return line
 
@@ -1431,37 +1505,16 @@ def phase_serve_main(torch, np, dev) -> dict:
                           submitted_at=0.0) for i, p in enumerate(prompts)]
     eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
         num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE), device=dev)
-    prefill_ms, step_ms = [], []
-    admit, step = eng.admit, eng.step
 
-    def timed_admit(req):
-        t = time.perf_counter()
-        ok = admit(req)               # ends in a host read (first token)
-        if ok:
-            prefill_ms.append((len(req.prompt),
-                               (time.perf_counter() - t) * 1e3))
-        return ok
+    def reset_counts():
+        flash.launches = 0
+        rglru.launches = rglru.chunked_launches = 0
 
-    def timed_step():
-        t = time.perf_counter()
-        out = step()                  # ends in a host read (new tokens)
-        step_ms.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    eng.admit, eng.step = timed_admit, timed_step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    flash.launches = 0
-    rglru.launches = rglru.chunked_launches = 0
-    t0 = time.perf_counter()
-    metrics = serve.run_server(eng, reqs, log=lambda s: None)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    metrics, wall, prefill_ms, step_ms, peak = _drive_engine(
+        torch, eng, reqs, reset_counts)
     launches = {"flash_attention": flash.launches,
                 "rglru_ring": rglru.launches - rglru.chunked_launches,
                 "rglru_chunked": rglru.chunked_launches}
-    peak = torch.cuda.max_memory_allocated()
-    del eng.admit, eng.step           # the class's methods again, no cycle
     bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
            or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
     if bad or metrics["requests"] != SERVE_REQUESTS:
@@ -1470,45 +1523,13 @@ def phase_serve_main(torch, np, dev) -> dict:
         raise SystemExit(f"serve main ran without launching a kernel: "
                          f"{launches}")
 
-    # Profiled windows: 8 decode steps with every slot busy, and one
-    # prefill of the longest prompt.
-    for i in range(SERVE_SLOTS):
-        eng.admit(serve.Request(uid=100 + i, prompt=prompts[i][:256],
-                                max_new_tokens=SERVE_NEW_TOKENS))
-    eng.step()
-    smi = _run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
-                "temperature.gpu", "--format=csv,noheader"])
-    decode_window = _profiled(torch, lambda: [eng.step() for _ in range(8)])
-    decode_window["steps"] = 8
     longest = int(np.argmax(lengths))
-    tokens = torch.as_tensor(prompts[longest], dtype=torch.int64,
-                             device=dev)[None]
-    prefill_window = _profiled(
-        torch, lambda: tf.prefill(params, {"tokens": tokens}, cfg,
-                                  SERVE_CACHE))
-    prefill_window["prompt_tokens"] = int(lengths[longest])
-
+    smi, decode_window, prefill_window = _serve_windows(
+        torch, eng, params, cfg, prompts, longest)
     # Self-consistency at full width: prefill a prompt past the window,
     # decode 8 tokens, and hold the logits to teacher forcing.
-    P, K = int(lengths[longest]), 8
-    seq = torch.as_tensor(np.concatenate([prompts[longest], rng.integers(
-        0, cfg.vocab_size, K).astype(np.int32)]), dtype=torch.int64,
-        device=dev)[None]
-    lg, st = tf.prefill(params, {"tokens": seq[:, :P]}, cfg, SERVE_CACHE)
-    dec = [lg]
-    for i in range(P, P + K - 1):
-        lg, st = tf.decode_step(params, seq[:, i:i + 1], st, cfg)
-        dec.append(lg)
-    del st
-    full, _ = tf.forward_train(params, {"tokens": seq[:, :P + K - 1]}, cfg)
-    want = full[0, P - 1:P + K - 1].float()
-    got = torch.cat(dec).float()
-    del full
-    scale = float(want.abs().max())
-    err = float((got - want).abs().max())
-    argmax_agree = int((got[:, :cfg.vocab_size].argmax(-1)
-                        == want[:, :cfg.vocab_size].argmax(-1)).sum())
-    consistent = err <= SERVE_CONSISTENCY_REL * scale
+    consistency = _teacher_forcing(torch, np, tf, params, cfg,
+                                   prompts[longest], rng)
     steps = np.asarray(step_ms)
     line = {"phase": "serve_main", "arch": cfg.name,
             "layers": cfg.num_layers, "params": count_params(specs),
@@ -1526,16 +1547,233 @@ def phase_serve_main(torch, np, dev) -> dict:
             "peak_device_bytes": peak, "launches": launches,
             "nvidia_smi_clocks_power": smi,
             "decode_window": decode_window, "prefill_window": prefill_window,
-            "consistency": {"prompt_tokens": P, "decode_steps": K - 1,
-                            "max_abs_err": err, "max_abs_logit": scale,
-                            "limit": SERVE_CONSISTENCY_REL * scale,
-                            "argmax_agree": argmax_agree, "of": K}}
+            "consistency": consistency}
     emit(line)
-    if not consistent:
+    if not consistency["within_limit"]:
         raise SystemExit("serve main: decode logits disagree with teacher "
                          "forcing at full width")
     return line
 
+
+def _serve_windows(torch, eng, params, cfg, prompts, longest):
+    """Profiled windows: 8 decode steps with every slot busy (each slot
+    admitted with the first 256 tokens of a prompt), and one prefill of
+    the longest prompt; and the card's clocks and power beside them."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine as serve
+    for i in range(SERVE_SLOTS):
+        eng.admit(serve.Request(uid=100 + i, prompt=prompts[i][:256],
+                                max_new_tokens=SERVE_NEW_TOKENS))
+    eng.step()
+    smi = _run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                "temperature.gpu", "--format=csv,noheader"])
+    decode_window = _profiled(torch, lambda: [eng.step() for _ in range(8)])
+    decode_window["steps"] = 8
+    tokens = torch.as_tensor(prompts[longest], dtype=torch.int64,
+                             device=params["embed"].device)[None]
+    prefill_window = _profiled(
+        torch, lambda: tf.prefill(params, {"tokens": tokens}, cfg,
+                                  SERVE_CACHE))
+    prefill_window["prompt_tokens"] = len(prompts[longest])
+    return smi, decode_window, prefill_window
+
+
+def _drive_engine(torch, eng, reqs, reset_counts):
+    """``run_server`` over ``reqs`` with each ``admit`` (a prefill) and
+    ``step`` timed on the host clock (each ends in a host read); the
+    kernels' counts are set to 0 by ``reset_counts`` just before.
+    Returns (metrics, wall s, [(prompt tokens, prefill ms)], [step ms],
+    peak device bytes)."""
+    from repro_torch.serve import engine as serve
+    prefill_ms, step_ms = [], []
+    admit, step = eng.admit, eng.step
+
+    def timed_admit(req):
+        t = time.perf_counter()
+        ok = admit(req)
+        if ok:
+            prefill_ms.append((len(req.prompt),
+                               (time.perf_counter() - t) * 1e3))
+        return ok
+
+    def timed_step():
+        t = time.perf_counter()
+        out = step()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    eng.admit, eng.step = timed_admit, timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    metrics = serve.run_server(eng, reqs, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del eng.admit, eng.step           # the class's methods again, no cycle
+    return metrics, wall, prefill_ms, step_ms, peak
+
+
+def _teacher_forcing(torch, np, tf, params, cfg, prompt, rng, K=8,
+                     multiple=1):
+    """Prefill ``prompt``, decode K - 1 tokens, and hold the K logit rows
+    to ``forward_train`` over the prompt and the decoded tokens, padded
+    with more random tokens to a length that is a multiple of
+    ``multiple`` (the mLSTM cell's chunk): the largest error against
+    SERVE_CONSISTENCY_REL of the largest logit, and argmax agreement."""
+    dev = params["embed"].device
+    P = len(prompt)
+    n_full = -(-(P + K - 1) // multiple) * multiple
+    seq = torch.as_tensor(np.concatenate([prompt, rng.integers(
+        0, cfg.vocab_size, max(K, n_full - P)).astype(np.int32)]),
+        dtype=torch.int64, device=dev)[None]
+    lg, st = tf.prefill(params, {"tokens": seq[:, :P]}, cfg, SERVE_CACHE)
+    dec = [lg]
+    for i in range(P, P + K - 1):
+        lg, st = tf.decode_step(params, seq[:, i:i + 1], st, cfg)
+        dec.append(lg)
+    del st
+    full, _ = tf.forward_train(params, {"tokens": seq[:, :n_full]}, cfg)
+    want = full[0, P - 1:P + K - 1].float()
+    got = torch.cat(dec).float()
+    del full
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    argmax_agree = int((got[:, :cfg.vocab_size].argmax(-1)
+                        == want[:, :cfg.vocab_size].argmax(-1)).sum())
+    return {"prompt_tokens": P, "decode_steps": K - 1,
+            "teacher_forcing_tokens": n_full, "max_abs_err": err,
+            "max_abs_logit": scale, "limit": SERVE_CONSISTENCY_REL * scale,
+            "argmax_agree": argmax_agree, "of": K,
+            "within_limit": err <= SERVE_CONSISTENCY_REL * scale}
+
+
+
+XLSTM_GOLDEN = ROOT / "tests" / "data" / "torch_xlstm_serve_golden" / \
+    "expected.npz"
+XLSTM_CHUNK = 64       # the mLSTM cell's chunk: prompts of 64 or more
+                       # tokens are multiples of it
+
+
+def phase_xlstm_golden(torch, np, dev) -> dict:
+    """The fixture ``tests/data/torch_xlstm_serve_golden`` (a float32
+    xLSTM-125M twin at full width, 8 layers, parameters redrawn from the
+    fixture's seed and checked by digest; JAX's prefill and decode logits
+    and greedy engine tokens): the port on the card through the mLSTM
+    block kernel at dk 384 reproduces them."""
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    from repro_torch.serve import golden
+    with np.load(XLSTM_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    t0 = time.perf_counter()
+    before = (mlstm.launches, mlstm.row_launches)
+    report = golden.replay(fx, dev)
+    rows = mlstm.row_launches - before[1]
+    block = mlstm.launches - before[0] - rows
+    line = {"phase": "xlstm_golden", "layers": golden.LAYERS, **report,
+            "mlstm_block_launches": block, "mlstm_row_launches": rows,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not report["ok"] or block == 0:
+        raise SystemExit("xlstm golden: the port on the card does not "
+                         "reproduce the JAX fixture through the mLSTM "
+                         "kernel")
+    return line
+
+
+def phase_xlstm_serve_main(torch, np, dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm
+    from repro_torch.models.params import count_params, init_params
+    from repro_torch.serve import engine as serve
+    cfg = get_config("xlstm-125m")
+    specs = tf.model_specs(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = init_params(specs, gen, dev, dtype=tf.serving_dtype(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in
+                       _leaves(params))
+    rng = np.random.default_rng(0)
+    lengths = XLSTM_CHUNK * rng.integers(4, 49, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    reqs = [serve.Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS,
+                          submitted_at=0.0) for i, p in enumerate(prompts)]
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE), device=dev)
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in _leaves(eng.states))
+
+    def reset_counts():
+        mlstm.launches = mlstm.row_launches = 0
+
+    metrics, wall, prefill_ms, step_ms, peak = _drive_engine(
+        torch, eng, reqs, reset_counts)
+    launches = {"mlstm_chunkwise": mlstm.launches - mlstm.row_launches,
+                "mlstm_rows": mlstm.row_launches}
+    bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    if bad or metrics["requests"] != SERVE_REQUESTS:
+        raise SystemExit(f"xlstm serve main: malformed outputs for {bad}")
+    if launches["mlstm_chunkwise"] == 0:
+        raise SystemExit(f"xlstm serve main ran without launching the mLSTM "
+                         f"block kernel: {launches}")
+    longest = int(np.argmax(lengths))
+    smi, decode_window, prefill_window = _serve_windows(
+        torch, eng, params, cfg, prompts, longest)
+
+    # One sLSTM layer's prefill walk (the eager time loop) at the longest
+    # prompt's length, on the host clock around a synchronised call.
+    seg = cfg.layer_plan()[0]
+    j = next(j for j, b in enumerate(seg.blocks) if b.mixer == "slstm")
+    p_slstm = tf._segment_layers(seg, params["segments"][0])[0][
+        f"block{j}"]["mixer"]
+    x = torch.randn((1, int(lengths[longest]), cfg.d_model), generator=gen,
+                    device=dev).to(getattr(torch, cfg.dtype))
+    walk_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        xlstm.slstm_prefill(p_slstm, x, cfg)
+        torch.cuda.synchronize()
+        walk_ms.append((time.perf_counter() - t) * 1e3)
+    del x
+
+    consistency = _teacher_forcing(torch, np, tf, params, cfg,
+                                   prompts[longest], rng,
+                                   multiple=XLSTM_CHUNK)
+    steps = np.asarray(step_ms)
+    line = {"phase": "xlstm_serve_main", "arch": cfg.name,
+            "layers": cfg.num_layers, "params": count_params(specs),
+            "weight_bytes": weight_bytes, "param_init_s": init_s,
+            "num_slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+            "decode_state_bytes": state_bytes,
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+            "prompt_tokens": int(lengths.sum()),
+            "run_server": metrics, "wall_s": wall,
+            "prefill_ms_by_prompt_len": sorted(prefill_ms),
+            "decode_steps": len(step_ms),
+            "decode_step_ms_median": float(np.median(steps)),
+            "decode_step_ms_p99": float(np.percentile(steps, 99)),
+            "decode_step_ms_max": float(steps.max()),
+            "peak_device_bytes": peak, "launches": launches,
+            "slstm_layer_prefill_ms": {"prompt_tokens": int(lengths[longest]),
+                                       "cold": walk_ms[0],
+                                       "warm": walk_ms[1]},
+            "nvidia_smi_clocks_power": smi,
+            "decode_window": decode_window, "prefill_window": prefill_window,
+            "consistency": consistency}
+    emit(line)
+    if not consistency["within_limit"]:
+        raise SystemExit("xlstm serve main: decode logits disagree with "
+                         "teacher forcing at full width")
+    return line
 
 
 def phase_grad(torch, np, dev) -> dict:
@@ -1583,6 +1821,7 @@ def phase_grad(torch, np, dev) -> dict:
         "flash_attention/train": flash_check(FLASH_TRAIN_CASE),
         "mlstm_chunkwise/forecast": mlstm_check(MLSTM_CASES[0]),
         "mlstm_chunkwise/forecast_train": mlstm_check(MLSTM_TRAIN_CASE),
+        "mlstm_chunkwise/xlstm_serve": mlstm_check(MLSTM_XLSTM_CASE),
     }
     report = {}
     for name, (module, kernel_fn, plain_fn, make, tol) in checks.items():
@@ -2033,6 +2272,10 @@ def main() -> int:
     ft = phase_forecast_train(torch, np, dev, data, forecast_line)
     tm = phase_train_main(torch, np, dev)
     emit({"phase": "train_phases", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    phase_xlstm_golden(torch, np, dev)
+    xs = phase_xlstm_serve_main(torch, np, dev)
+    emit({"phase": "xlstm_phases", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -2060,7 +2303,7 @@ def main() -> int:
         "launches_by_path": {"forecast": forecast_line["mlstm_row_launches"],
                              "forecast_train": ft["mlstm_row_launches"]},
         "max_abs_err": m["max_abs_err_by_kernel"]["mlstm_rows"],
-        "ms": m["kernel_ms"], "parent_ms": m["block_kernel_ms"],
+        "ms": m["kernel_ms"], "block_kernel_ms": m["block_kernel_ms"],
         "plain_ms": m["plain_ms"], "library_ms": None,
         "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
         "design": "a lane per row of a chunk, one or two (b, h) a warp, "
@@ -2069,14 +2312,23 @@ def main() -> int:
         "name": "mlstm_chunkwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
         "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
-        "launches": forecast_line["mlstm_launches"]
-                    - forecast_line["mlstm_row_launches"],
-        "on_main_path": False,
+        "launches": xs["launches"]["mlstm_chunkwise"],
+        "on_main_path": True,
+        "launches_by_path": {
+            "xlstm_serve": xs["launches"]["mlstm_chunkwise"],
+            "forecast": forecast_line["mlstm_launches"]
+                        - forecast_line["mlstm_row_launches"]},
         "edge_case_launches": m["launches"]["block"],
-        "max_abs_err": m["max_abs_err_by_kernel"]["mlstm_chunkwise"],
-        "ms": m["block_kernel_ms"], "plain_ms": m["plain_ms"],
-        "library_ms": None, "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"]}, {
+        "shape": m["xlstm"]["shape"], "dtype": m["xlstm"]["dtype"],
+        "max_abs_err": m["xlstm"]["max_abs_err"],
+        "ms": m["xlstm"]["kernel_ms"], "plain_ms": m["xlstm"]["plain_ms"],
+        "library_ms": None, "bound_ms": m["xlstm"]["bound_ms"],
+        "bound_by": m["xlstm"]["bound_by"],
+        "forecast_shape_ms": m["block_kernel_ms"],
+        "design": "a block per (b, h) and 32 columns of C; q and k pass "
+                  "through shared memory in 128-column panels, each "
+                  "thread summing a register tile of q.k, q.C and the C "
+                  "update"}, {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:39",

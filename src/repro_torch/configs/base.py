@@ -5,9 +5,10 @@ A model is a list of *segments*, each ``repeats`` × a superblock of
 blocks; a segment with ``repeats > 1`` keeps its parameters and decode
 state stacked on a leading layer axis, as the reference's scanned
 segments do, so a parameter tree crosses between the two packages by
-key.  The port builds the dense plan (``attn`` + ``dense``) and the
-Griffin hybrid plan (``rglru`` ×2 + ``local_attn``); the xLSTM and MoE
-plans and the encoder tower raise (ROADMAP Queue 1 item 11).
+key.  The port builds the dense plan (``attn`` + ``dense``), the
+Griffin hybrid plan (``rglru`` ×2 + ``local_attn``) and the xLSTM plan
+(``mlstm`` ×(k−1) + ``slstm``, no MLP); the MoE plan and the encoder
+tower raise (ROADMAP Queue 1 item 11).
 
 The forecaster's mLSTM trunk reads ``d_model``, ``num_heads``,
 ``proj_factor`` and ``conv_width`` only.
@@ -74,6 +75,7 @@ class ArchConfig:
     n_experts: int = 0
 
     # ssm / hybrid
+    slstm_every: int = 0          # xLSTM: every k-th block is sLSTM
     proj_factor: float = 2.0      # mLSTM up-projection
     conv_width: int = 4
     d_rnn: int = 0                # RG-LRU width (0 -> d_model)
@@ -111,15 +113,28 @@ class ArchConfig:
         return self.num_heads // self.num_kv_heads
 
     def layer_plan(self) -> List[Segment]:
-        """Decoder segments: the Griffin pattern for ``hybrid``, one
-        stacked segment of dense attention blocks otherwise."""
+        """Decoder segments: the xLSTM pattern for ``ssm``, the Griffin
+        pattern for ``hybrid``, one stacked segment of dense attention
+        blocks otherwise."""
+        if self.family == "ssm":
+            return self._xlstm_plan()
         if self.family == "hybrid":
             return self._rglru_plan()
-        if (self.family == "ssm" or self.n_experts > 0
-                or self.is_encoder_decoder):
+        if self.n_experts > 0 or self.is_encoder_decoder:
             raise NotImplementedError(
                 f"{self.name}: the {self.family} layer plan is {NOT_PORTED}")
         return [Segment((BlockSpec("attn", "dense"),),
+                        repeats=self.num_layers)]
+
+    def _xlstm_plan(self) -> List[Segment]:
+        """(slstm_every − 1) mLSTM blocks then one sLSTM block, repeated;
+        all mLSTM when the depth is not a multiple of ``slstm_every``."""
+        k = self.slstm_every or self.num_layers + 1
+        if self.num_layers % k == 0:
+            blocks = tuple(BlockSpec("mlstm", "none") for _ in range(k - 1)) \
+                + (BlockSpec("slstm", "none"),)
+            return [Segment(blocks, repeats=self.num_layers // k)]
+        return [Segment((BlockSpec("mlstm", "none"),),
                         repeats=self.num_layers)]
 
     def _rglru_plan(self) -> List[Segment]:

@@ -54,19 +54,30 @@
 // shared memory (16 KB a chunk, against 6 KB from device memory), and the
 // arithmetic hides device-memory latency only partly.
 //
-// mlstm_chunkwise (everything else up to L <= 64, dk <= 128; the PR 12
-// kernel): grid (B*H, ceil(dv/32)), 128 threads; each block owns one
-// (b, h) and a 32-column slice of C and v, holds its C slice and n in
-// shared memory for the whole walk, and recomputes everything that does
-// not depend on the slice (gate prefix, D, m_i, q.k, row sums, q.n, the
-// n update), so blocks never talk to each other.  q and k rows are
-// padded by one float in shared memory so that the q.k loop, where
-// neighbouring threads read neighbouring rows of k, is free of bank
-// conflicts.  Limits: L <= 64 and dk <= 128 (shared memory: 109 KB at
-// those limits, opted in above 48 KB); any dv.  At the forecaster's
-// shape it ran at 28-30 % of the bound: five phases a chunk between
-// __syncthreads, a row phase on 16 of 128 threads, 4-byte loads, and no
-// overlap of a block's loads with its compute.
+// mlstm_chunkwise (everything else up to L <= 64, dk <= 384, any dv:
+// xLSTM-125M's heads are 384 wide): grid (B*H, ceil(dv/32)), 256 threads;
+// each block owns one (b, h) and a 32-column slice of C and v, holds its C
+// slice (dk x 32) and n in shared memory for the whole walk, and
+// recomputes everything that does not depend on the slice (gate prefix, D,
+// m_i, q.k, row sums, q.n, the n update), so blocks never talk to each
+// other.  q and k pass through shared memory in panels of 128 columns
+// (rows padded by one float, so that the q.k loop, where neighbouring
+// threads read neighbouring rows of k, is free of bank conflicts): per
+// chunk, each panel of q and k adds its part of q.k, q.C and q.n to
+// registers (each sum still runs over d in order), and the C and n update
+// walks the k panels again from the last, which is still in shared memory,
+// down (at dk <= 128 there is one panel and nothing is read twice).
+// Shared memory: 143 KB at L = 64, dk = 384 (q and k whole would need 197
+// KB in float32 alone), opted in above 48 KB.  At the forecaster's shape
+// an earlier 128-thread version with q and k whole in shared memory ran at
+// 28-30 % of the bound (five phases a chunk between __syncthreads, a row
+// phase on 16 of 128 threads, 4-byte loads, no overlap of a block's loads
+// with its compute); this one holds 2 blocks an SM there and is slower,
+// but that shape goes to mlstm_rows.  At xLSTM-125M's prefill (B*H = 4, dk
+// = dv = 384, L = 64) it is bound by operations (about 7.8 G float32
+// operations at T = 3072), and its 48 blocks recompute q.k once per column
+// slice, 12 times over, on 48 of 132 SMs: a simple kernel, far from that
+// bound.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (repro_torch/_build.py)
@@ -78,8 +89,14 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
 constexpr int kBV = 32;           // columns of C (and of v and h) per block
+constexpr int kDP = 128;          // columns of q and k per shared-memory panel
+constexpr int kMaxL = 64;         // the block kernel's limits
+constexpr int kMaxDk = 384;
+static_assert(kThreads == 256 && kMaxL == 64 && kBV == 32 && kDP == 128,
+              "the register tiles assume a 16 x 16 thread grid over rows "
+              "of 64, 32 columns and panels of 128");
 constexpr float kFloor = -1e30f;  // stabiliser floor, as the oracle's
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -97,14 +114,17 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return fminf(x, 0.f) - log1pf(expf(-fabsf(x)));
 }
 
-// Shared floats a block needs for chunk length L and key width dk.
+// Shared floats a block needs for chunk length L and key width dk: one
+// panel of q and of k (rows padded by one), the v slice, P, the C slice,
+// n, and the per-row scalars.
 __host__ __device__ inline int64_t smem_floats(int64_t L, int64_t dk) {
-  return 2 * L * (dk + 1)   // q, k (rows padded by one)
+  const int64_t dp = dk < kDP ? dk : kDP;
+  return 2 * L * (dp + 1)   // q, k panels
          + L * kBV          // v slice
          + L * (L + 1)      // P = S o qk (rows padded by one)
          + dk * kBV         // C slice
          + dk               // n
-         + 5 * L            // b, i, w, inter_w, norm
+         + 6 * L            // b, i, w, inter_w, norm, q.n
          + 4;               // m, m', scale_old, pad
 }
 
@@ -121,8 +141,10 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunkwise_kernel(
   const int v0 = blockIdx.y * kBV;
   const int bv = min(kBV, dv - v0);  // this block's columns
   const int tid = threadIdx.x;
-  const int qs = dk + 1;
+  const int qs = min(dk, kDP) + 1;
   const int ps = L + 1;
+  const int n_panels = (dk + kDP - 1) / kDP;
+  const int ti = tid / 16, tj = tid % 16;  // the register tiles' owner
   float* sq = smem;
   float* sk = sq + L * qs;
   float* sv = sk + L * qs;
@@ -134,7 +156,8 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunkwise_kernel(
   float* sw = si + L;
   float* sinter = sw + L;
   float* snorm = sinter + L;
-  float* sm = snorm + L;  // [0] m, [1] m', [2] scale_old
+  float* sqn = snorm + L;
+  float* sm = sqn + L;  // [0] m, [1] m', [2] scale_old
 
   const int64_t base_qk = bh * T_len * dk;
   const int64_t base_v = bh * T_len * dv;
@@ -152,17 +175,20 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunkwise_kernel(
     sn[d] = have_state ? n0[bh * dk + d] : 0.f;
   if (tid == 0) sm[0] = have_state ? m0[bh] : -INFINITY;
 
+  // Columns d0 .. d0 + w of the chunk's rows of x into a panel.
+  auto load_panel = [&](float* dst, const T* x, int64_t t0, int d0, int w) {
+    for (int e = tid; e < L * w; e += kThreads) {
+      const int r = e / w, d = e % w;
+      dst[r * qs + d] = to_f32(x[base_qk + (t0 + r) * dk + d0 + d]);
+    }
+  };
+
   const int n_chunks = T_len / L;
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int64_t t0 = static_cast<int64_t>(ch) * L;
     const bool update = ch + 1 < n_chunks || want_state;
-    __syncthreads();  // the previous chunk is done with q, k, v, P and m
+    __syncthreads();  // the previous chunk is done with every buffer
 
-    for (int e = tid; e < L * dk; e += kThreads) {
-      const int r = e / dk, d = e % dk;
-      sq[r * qs + d] = to_f32(q[base_qk + t0 * dk + e]);
-      sk[r * qs + d] = to_f32(k[base_qk + t0 * dk + e]);
-    }
     for (int e = tid; e < L * kBV; e += kThreads) {
       const int r = e / kBV, c = e % kBV;
       sv[e] = c < bv ? to_f32(v[base_v + (t0 + r) * dv + v0 + c]) : 0.f;
@@ -184,18 +210,60 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunkwise_kernel(
         carry = __shfl_sync(0xffffffffu, x, 31);
       }
     }
-    __syncthreads();
 
-    // qk_ij = q_i . k_j on and below the diagonal.
-    for (int e = tid; e < L * L; e += kThreads) {
-      const int i = e / L, j = e % L;
-      float acc = 0.f;
-      if (j <= i) {
-        const float* qi = sq + i * qs;
-        const float* kj = sk + j * qs;
-        for (int d = 0; d < dk; ++d) acc += qi[d] * kj[d];
+    // Over the dk panels: qk_ij = q_i . k_j on and below the diagonal,
+    // q_i . C_c and q_i . n, each summed over d in order in registers.
+    // Thread (ti, tj) owns rows i = ti + 16a (a < 4), key rows
+    // j = tj + 16b (b <= a) and columns c = tj + 16b (b < 2): per d it
+    // reads 4 q, 4 k, 2 C and one n value for 10 + 8 + 4 products.
+    float qk[4][4], qc[4][2], qn[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      qn[a] = 0.f;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) qk[a][b] = 0.f;
+#pragma unroll
+      for (int b = 0; b < 2; ++b) qc[a][b] = 0.f;
+    }
+    for (int p = 0; p < n_panels; ++p) {
+      const int d0 = p * kDP, w = min(kDP, dk - d0);
+      if (p > 0) __syncthreads();  // the previous panel's readers are done
+      load_panel(sq, q, t0, d0, w);
+      load_panel(sk, k, t0, d0, w);
+      __syncthreads();
+      for (int d = 0; d < w; ++d) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          qv[a] = ti + 16 * a < L ? sq[(ti + 16 * a) * qs + d] : 0.f;
+          kv[a] = tj + 16 * a < L ? sk[(tj + 16 * a) * qs + d] : 0.f;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b <= a; ++b) qk[a][b] += qv[a] * kv[b];
+        if (have_state) {
+          const float* Cd = sC + (d0 + d) * kBV + tj;
+          const float c0 = Cd[0], c1 = Cd[16], nd = sn[d0 + d];
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+            qc[a][0] += qv[a] * c0;
+            qc[a][1] += qv[a] * c1;
+            qn[a] += qv[a] * nd;
+          }
+        }
       }
-      sP[i * ps + j] = acc;
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int i = ti + 16 * a;
+      if (i >= L) continue;
+#pragma unroll
+      for (int b = 0; b <= a; ++b) {
+        const int j = tj + 16 * b;
+        if (j < L) sP[i * ps + j] = qk[a][b];
+      }
+      if (tj == 0) sqn[i] = qn[a];
     }
     __syncthreads();
 
@@ -214,32 +282,47 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunkwise_kernel(
         sP[i * ps + j] = p;
         den += p;
       }
-      if (have_state) {
-        float qn = 0.f;
-        for (int d = 0; d < dk; ++d) qn += sq[i * qs + d] * sn[d];
-        den += inter_w * qn;
-      }
+      if (have_state) den += inter_w * sqn[i];
       sinter[i] = inter_w;
       snorm[i] = fmaxf(fabsf(den), expf(-m_i));
     }
     __syncthreads();
 
-    // h_ic = (inter_w_i q_i.C_c + sum_j P_ij v_jc) / norm_i.
-    for (int e = tid; e < L * kBV; e += kThreads) {
-      const int i = e / kBV, c = e % kBV;
-      float intra = 0.f;
-      for (int j = 0; j <= i; ++j) intra += sP[i * ps + j] * sv[j * kBV + c];
-      float inter = 0.f;
-      if (have_state) {
-        for (int d = 0; d < dk; ++d) inter += sq[i * qs + d] * sC[d * kBV + c];
+    // h_ic = (inter_w_i q_i.C_c + sum_j P_ij v_jc) / norm_i, for the
+    // thread's rows i = ti + 16a and columns c = tj + 16b.
+    {
+      float intra[4][2];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) intra[a][0] = intra[a][1] = 0.f;
+      const int last = min(ti + 48, L - 1);
+      for (int j = 0; j <= last; ++j) {
+        const float v0j = sv[j * kBV + tj], v1j = sv[j * kBV + tj + 16];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = ti + 16 * a;
+          if (i < L && j <= i) {
+            const float pij = sP[i * ps + j];
+            intra[a][0] += pij * v0j;
+            intra[a][1] += pij * v1j;
+          }
+        }
       }
-      if (c < bv)
-        store(h + base_v + (t0 + i) * dv + v0 + c,
-              (sinter[i] * inter + intra) / snorm[i]);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int i = ti + 16 * a;
+        if (i >= L) continue;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int c = tj + 16 * b;
+          if (c < bv)
+            store(h + base_v + (t0 + i) * dv + v0 + c,
+                  (sinter[i] * qc[a][b] + intra[a][b]) / snorm[i]);
+        }
+      }
     }
     if (!update) break;
 
-    // State update.
+    // State update, panel by panel from the last (still in sk) down.
     if (tid == 0) {
       const float g = sb[L - 1];
       float mx = g + m;
@@ -248,23 +331,51 @@ __global__ void __launch_bounds__(kThreads) mlstm_chunkwise_kernel(
       sm[1] = m_new;
       sm[2] = expf(g + m - m_new);
     }
-    __syncthreads();  // also: every reader of C above is done
+    __syncthreads();
     const float g = sb[L - 1];
     const float m_new = sm[1];
     const float scale_old = sm[2];
     for (int j = tid; j < L; j += kThreads)
       sw[j] = expf(g - sb[j] + si[j] - m_new);
     __syncthreads();
-    for (int e = tid; e < dk * kBV; e += kThreads) {
-      const int d = e / kBV, c = e % kBV;
-      float acc = 0.f;
-      for (int j = 0; j < L; ++j) acc += sw[j] * sk[j * qs + d] * sv[j * kBV + c];
-      sC[e] = scale_old * sC[e] + acc;
-    }
-    for (int d = tid; d < dk; d += kThreads) {
-      float acc = 0.f;
-      for (int j = 0; j < L; ++j) acc += sw[j] * sk[j * qs + d];
-      sn[d] = scale_old * sn[d] + acc;
+    for (int p = n_panels - 1; p >= 0; --p) {
+      const int d0 = p * kDP, w = min(kDP, dk - d0);
+      if (p < n_panels - 1) {
+        __syncthreads();  // the previous panel's readers are done
+        load_panel(sk, k, t0, d0, w);
+        __syncthreads();
+      }
+      // Thread (ti, tj) owns rows d = ti + 16a (a < 8) of the panel and
+      // columns c = tj + 16b (b < 2) of the C slice.
+      float acc[8][2];
+#pragma unroll
+      for (int a = 0; a < 8; ++a) acc[a][0] = acc[a][1] = 0.f;
+      for (int j = 0; j < L; ++j) {
+        const float wj = sw[j];
+        const float v0j = sv[j * kBV + tj], v1j = sv[j * kBV + tj + 16];
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          const int d = ti + 16 * a;
+          const float wk = d < w ? wj * sk[j * qs + d] : 0.f;
+          acc[a][0] += wk * v0j;
+          acc[a][1] += wk * v1j;
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < 8; ++a) {
+        const int d = ti + 16 * a;
+        if (d >= w) continue;
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          float* Cdc = sC + (d0 + d) * kBV + tj + 16 * b;
+          *Cdc = scale_old * *Cdc + acc[a][b];
+        }
+      }
+      for (int d = tid; d < w; d += kThreads) {
+        float acc = 0.f;
+        for (int j = 0; j < L; ++j) acc += sw[j] * sk[j * qs + d];
+        sn[d0 + d] = scale_old * sn[d0 + d] + acc;
+      }
     }
     if (tid == 0) sm[0] = m_new;
     have_state = true;
@@ -289,6 +400,9 @@ int launch(const void* q, const void* k, const void* v, const void* ig,
            void* h, void* C_out, void* n_out, void* m_out, int64_t bh,
            int64_t t_len, int64_t L, int64_t dk, int64_t dv,
            cudaStream_t stream) {
+  if (L < 1 || L > kMaxL || dk < 1 || dk > kMaxDk || dv < 1 || t_len % L ||
+      t_len > 2147483647LL)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(smem_floats(L, dk)) * sizeof(float);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(

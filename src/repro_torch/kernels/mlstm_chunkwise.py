@@ -17,7 +17,8 @@ the forecaster's envelope: chunk length ``L <= 32``, ``dk, dv <= 64``,
 with ``L``, ``dk`` and ``dv`` whole 16-byte rows (multiples of 4 in
 float32, of 8 in bfloat16) and 16-byte-aligned inputs.  The block
 kernel (``mlstm_chunkwise``) takes everything else up to ``L <= 64`` and
-``dk <= 128``.
+``dk <= 384`` (xLSTM-125M's mLSTM heads are 384 wide), any ``dv``, in
+both dtypes, with or without a state in and out.
 
 With grad enabled and an input that requires grad, the call goes
 through ``_autograd.apply``: the same forward, and a backward that
@@ -41,7 +42,7 @@ from repro_torch.kernels import _autograd
 
 DEFAULT_CHUNK = 64
 MAX_CHUNK = 64          # the kernel's limits (shared memory per block)
-MAX_DK = 128
+MAX_DK = 384
 ROW_MAX_CHUNK = 32      # the row kernel's envelope (one lane per row)
 ROW_MAX_D = 64
 STABILISER_FLOOR = -1e30

@@ -18,10 +18,16 @@ through host memory as float32.
 Both builders take ``dtype``: one ``torch.dtype`` for every leaf, or a
 function of a leaf's key path that gives its dtype (the serving form,
 ``repro_torch.models.transformer.serving_dtype``).
+
+:func:`numpy_params` draws the same initialisers with
+``numpy.random.default_rng(seed)`` as float32 numpy arrays, which both
+packages read: a fixture then carries a seed and :func:`tree_digest` in
+place of the parameters themselves.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
@@ -147,3 +153,36 @@ def params_from_numpy(tree, device=None,
     return map_tree(
         lambda path, a: torch.tensor(np.asarray(a)).to(
             dtype=_leaf_dtype(dtype, path), device=dev), tree)
+
+
+def _numpy_leaf(spec: ParamSpec, rng: np.random.Generator) -> np.ndarray:
+    if spec.init == "zeros":
+        return np.zeros(spec.shape, np.float32)
+    if spec.init == "ones":
+        return np.ones(spec.shape, np.float32)
+    if spec.init == "normal":
+        std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
+        return (rng.standard_normal(spec.shape) * std).astype(np.float32)
+    raise ValueError(f"init {spec.init!r} has no numpy draw")
+
+
+def numpy_params(specs, seed: int) -> Dict:
+    """Float32 numpy parameters for a spec tree, drawn leaf by leaf in
+    JAX's flattening order from ``numpy.random.default_rng(seed)``: a
+    normal leaf is a standard normal times ``scale / sqrt(fan_in)``, as
+    the reference's initialiser, zeros and ones as they are."""
+    rng = np.random.default_rng(seed)
+    flat = {path: _numpy_leaf(spec, rng)
+            for path, spec in leaves_with_paths(specs)}
+    return map_tree(lambda path, _: flat[path], specs)
+
+
+def tree_digest(tree) -> str:
+    """sha256 over every leaf's key path, shape, dtype and bytes, in
+    JAX's flattening order (a tree of numpy arrays)."""
+    h = hashlib.sha256()
+    for path, leaf in leaves_with_paths(tree):
+        a = np.ascontiguousarray(leaf)
+        h.update(f"{path}{a.shape}{a.dtype}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()

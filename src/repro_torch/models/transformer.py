@@ -21,27 +21,31 @@ stacked leaves, so gradients land in them.  ``decode_step`` updates the
 decode state in place, layer by layer, as the reference's write-back
 chain does (``transformer.py:447-460``), and returns the same object.
 
-Mixers ``attn``, ``local_attn`` and ``rglru`` and the ``dense`` MLP are
-ported; the others, cross attention, parallel blocks and the modality
-stubs raise ``NotImplementedError`` naming ROADMAP Queue 1 item 11.
+Mixers ``attn``, ``local_attn``, ``rglru``, ``mlstm`` and ``slstm`` and
+the ``dense`` and ``none`` MLPs are ported (a block with no MLP has no
+``norm2``, as xLSTM's); MoE, cross attention, parallel blocks and the
+modality stubs raise ``NotImplementedError`` naming ROADMAP Queue 1
+item 11.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED, ArchConfig, BlockSpec, Segment
-from repro_torch.models import layers, rglru
+from repro_torch.models import layers, rglru, xlstm
 from repro_torch.models.params import ParamSpec, map_tree, stack_specs
 
 VOCAB_PAD_MULTIPLE = 512
 
 # Leaves the reference reads in float32 whatever the activation dtype
-# (norm scales, Lambda) or in both float32 and the activation dtype (the
-# RG-LRU gate projections: see repro_torch/models/rglru.py).  Every other
-# leaf is read only as ``astype(cfg.dtype)``.
+# (norm scales and biases, Lambda) or in both float32 and the activation
+# dtype (the RG-LRU gate projections: see repro_torch/models/rglru.py).
+# Every other leaf is read only as ``astype(cfg.dtype)``, and so are the
+# sLSTM's ``w_x`` and ``bias``, which share these names
+# (``_float32_leaf``).
 FLOAT32_LEAVES = frozenset({"scale", "bias", "lam", "w_a", "b_a", "w_x",
                             "b_x"})
 
@@ -58,16 +62,51 @@ def serving_dtype(cfg: ArchConfig):
     no number of the serving path, and halves the bytes of the large
     matrices in bfloat16."""
     act = getattr(torch, cfg.dtype)
+    plan = cfg.layer_plan()
 
     def dtype(path) -> torch.dtype:
-        return torch.float32 if path[-1] in FLOAT32_LEAVES else act
+        return torch.float32 if _float32_leaf(plan, path) else act
     return dtype
 
 
+def _float32_leaf(plan: List[Segment], path) -> bool:
+    """Whether the reference reads the leaf at ``path`` in float32: a
+    name in ``FLOAT32_LEAVES`` outside an sLSTM mixer (whose leaves are
+    all read in the activation dtype)."""
+    if path[-1] not in FLOAT32_LEAVES:
+        return False
+    if path[0] == "segments" and len(path) > 3 and path[3] == "mixer":
+        blk = plan[path[1]].blocks[int(path[2][len("block"):])]
+        return blk.mixer != "slstm"
+    return True
+
+
+class _Recurrent(NamedTuple):
+    """A recurrent mixer's functions, each as its module names it."""
+    specs: Callable
+    forward: Callable        # (p, x, cfg) -> out: training
+    prefill: Callable        # (p, x, cfg) -> (out, decode state)
+    decode_init: Callable    # (cfg, batch, device=) -> decode state
+    decode: Callable         # (p, x, cfg, state) -> (out, new state)
+
+
+_RECURRENT = {
+    "rglru": _Recurrent(rglru.rglru_specs, rglru.apply_rglru,
+                        rglru.rglru_prefill, rglru.rglru_decode_init,
+                        rglru.apply_rglru_decode),
+    "mlstm": _Recurrent(xlstm.mlstm_specs, xlstm.apply_mlstm,
+                        xlstm.mlstm_prefill, xlstm.mlstm_decode_init,
+                        xlstm.apply_mlstm_decode),
+    "slstm": _Recurrent(xlstm.slstm_specs, xlstm.apply_slstm,
+                        xlstm.slstm_prefill, xlstm.slstm_decode_init,
+                        xlstm.apply_slstm_decode),
+}
+
+
 def _check_block(blk: BlockSpec, cfg: ArchConfig) -> None:
-    if blk.mixer not in ("attn", "local_attn", "rglru"):
+    if blk.mixer not in ("attn", "local_attn", *_RECURRENT):
         raise NotImplementedError(f"mixer {blk.mixer!r} is {NOT_PORTED}")
-    if blk.mlp != "dense":
+    if blk.mlp not in ("dense", "none"):
         raise NotImplementedError(f"mlp {blk.mlp!r} is {NOT_PORTED}")
     if blk.cross_attn or cfg.parallel_block:
         raise NotImplementedError(f"{cfg.name}: cross attention and "
@@ -80,12 +119,13 @@ def _check_block(blk: BlockSpec, cfg: ArchConfig) -> None:
 
 def _block_specs(blk: BlockSpec, cfg: ArchConfig) -> Dict[str, Any]:
     _check_block(blk, cfg)
-    if blk.mixer == "rglru":
-        mixer = rglru.rglru_specs(cfg)
-    else:
-        mixer = layers.attn_specs(cfg)
-    return {"norm1": layers.norm_specs(cfg), "mixer": mixer,
-            "norm2": layers.norm_specs(cfg), "mlp": layers.mlp_specs(cfg)}
+    rec = _RECURRENT.get(blk.mixer)
+    mixer = rec.specs(cfg) if rec else layers.attn_specs(cfg)
+    specs = {"norm1": layers.norm_specs(cfg), "mixer": mixer}
+    if blk.mlp == "dense":
+        specs.update(norm2=layers.norm_specs(cfg),
+                     mlp=layers.mlp_specs(cfg))
+    return specs
 
 
 def _tower_specs(plan: List[Segment], cfg: ArchConfig) -> List[Dict]:
@@ -119,8 +159,10 @@ def _window(blk: BlockSpec, cfg: ArchConfig) -> int:
     return cfg.sliding_window if blk.mixer == "local_attn" else 0
 
 
-def _finish_block(p, x, mix, cfg: ArchConfig):
+def _finish_block(blk: BlockSpec, p, x, mix, cfg: ArchConfig):
     x = x + mix
+    if blk.mlp == "none":
+        return x
     return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["norm2"], x,
                                                             cfg), cfg)
 
@@ -130,21 +172,24 @@ def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     """Training forward of one block."""
     _check_block(blk, cfg)
     h = layers.apply_norm(p["norm1"], x, cfg)
-    if blk.mixer == "rglru":
-        mix = rglru.apply_rglru(p["mixer"], h, cfg)
+    if blk.mixer in _RECURRENT:
+        mix = _RECURRENT[blk.mixer].forward(p["mixer"], h, cfg)
     else:
         mix = layers.attention(p["mixer"], h, cfg, positions=positions,
                                causal=causal, window=_window(blk, cfg),
                                use_rope=cfg.use_rope)
-    return _finish_block(p, x, mix, cfg)
+    return _finish_block(blk, p, x, mix, cfg)
 
 
 def init_block_state(blk: BlockSpec, cfg: ArchConfig, batch: int,
                      cache_len: int, dtype=torch.bfloat16,
                      device=None) -> Dict:
+    """A block's zero decode state.  ``dtype`` is the KV caches'; the
+    recurrent states (RG-LRU, mLSTM, sLSTM) are float32 whatever it is,
+    as the reference's."""
     _check_block(blk, cfg)
-    if blk.mixer == "rglru":
-        return rglru.rglru_decode_init(cfg, batch, device=device)
+    if blk.mixer in _RECURRENT:
+        return _RECURRENT[blk.mixer].decode_init(cfg, batch, device=device)
     return layers.init_kv_cache(cfg, batch, cache_len,
                                 window=_window(blk, cfg), dtype=dtype,
                                 device=device)
@@ -156,14 +201,16 @@ _rglru_prefill = rglru.rglru_prefill
 def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
                         cache_len: int) -> Tuple[torch.Tensor, Dict]:
     """Forward + decode-state extraction (serving prefill).  The k, v that
-    fill the cache are the ones the attention reads (the reference
-    projects them twice, to the same values)."""
+    fill the cache are the ones the attention reads, the mLSTM's conv
+    tail the ``up`` its cell read, and the sLSTM's state comes from the
+    walk that gave its output (the reference computes each twice, to the
+    same values)."""
     _check_block(blk, cfg)
     B, S, _ = x.shape
     h = layers.apply_norm(p["norm1"], x, cfg)
-    if blk.mixer == "rglru":
-        mix, state = _rglru_prefill(p["mixer"], h, cfg)
-        return _finish_block(p, x, mix, cfg), state
+    if blk.mixer in _RECURRENT:
+        mix, state = _RECURRENT[blk.mixer].prefill(p["mixer"], h, cfg)
+        return _finish_block(blk, p, x, mix, cfg), state
     window = _window(blk, cfg)
     q, k, v = layers._project_qkv(p["mixer"], h, cfg, positions,
                                   cfg.use_rope)
@@ -187,20 +234,20 @@ def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     state["pos"].fill_(S)
     out = layers.attention_from_qkv(q, k, v, causal=True, window=window)
     mix = layers._out_proj(out, p["mixer"]["w_o"])
-    return _finish_block(p, x, mix, cfg), state
+    return _finish_block(blk, p, x, mix, cfg), state
 
 
 def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
                        ) -> Tuple[torch.Tensor, Dict]:
     _check_block(blk, cfg)
     h = layers.apply_norm(p["norm1"], x, cfg)
-    if blk.mixer == "rglru":
-        mix, state = rglru.apply_rglru_decode(p["mixer"], h, cfg, state)
+    if blk.mixer in _RECURRENT:
+        mix, state = _RECURRENT[blk.mixer].decode(p["mixer"], h, cfg, state)
     else:
         mix, state = layers.decode_attention(p["mixer"], h, cfg, state,
                                              window=_window(blk, cfg),
                                              use_rope=cfg.use_rope)
-    return _finish_block(p, x, mix, cfg), state
+    return _finish_block(blk, p, x, mix, cfg), state
 
 
 # --------------------------------------------------------------------------- #

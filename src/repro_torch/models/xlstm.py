@@ -1,14 +1,31 @@
-"""The mLSTM block of xLSTM (Beck et al., 2024), as the mLSTM part of
-``repro/models/xlstm.py``.
+"""xLSTM blocks (Beck et al., 2024), as ``repro/models/xlstm.py``:
+mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar memory,
+sequential).
 
-Block: x → up-projection (×proj_factor) with a SiLU gate branch; a causal
-conv1d feeds q/k; the chunkwise cell; RMS norm, gating and
+mLSTM block: x → up-projection (×proj_factor) with a SiLU gate branch; a
+causal conv1d feeds q/k; the chunkwise cell; RMS norm, gating and
 down-projection.  The cell, ``_mlstm_chunkwise``, is
 :func:`repro_torch.kernels.mlstm_chunkwise.mlstm_chunkwise`: the CUDA
 kernel on CUDA tensors, its plain version on CPU tensors.  The
-projections around the cell are ``torch.einsum`` in float32 (the
-reference computes them outside any kernel too).  The reference's
-``shard(...)`` layout hints carry no arithmetic and are dropped.
+projections around the cell are ``torch.einsum`` (the reference computes
+them outside any kernel too).  Decode is the one-step recurrence in
+plain PyTorch, as the reference's, with a float32 state (C, n, m, conv).
+
+sLSTM block: per-channel scalar memories with block-diagonal recurrent
+weights (one block per head).  The recurrence is on h_{t-1}, so it has
+no parallel form and no Pallas kernel: the port walks time in a Python
+loop, as the reference's ``lax.scan``, with ``x @ w_x`` for all T
+hoisted out of the loop (it does not read h) and the gates summed in the
+reference's order ``gx + gh + bias``.  ``slstm_prefill`` returns the
+output and the final state ``(c, n, m, h)`` from one walk (the reference
+walks twice, to the same values).
+
+Dtypes follow the reference: weights are read as ``astype(x.dtype)``
+except the RMS norm's scale (float32), and where the float32 decode
+state meets a bfloat16 activation the product takes the wider dtype, as
+JAX promotes (the weight rounded to bfloat16 first, then widened).  The
+reference's ``shard(...)`` layout hints carry no arithmetic and are
+dropped.
 """
 from __future__ import annotations
 
@@ -19,7 +36,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.mlstm_chunkwise import mlstm_chunkwise
-from repro_torch.models.conv import causal_conv1d, conv_specs
+from repro_torch.models.conv import (causal_conv1d, causal_conv1d_step,
+                                     conv_decode_init, conv_specs)
 from repro_torch.models.params import ParamSpec
 
 MLSTM_CHUNK = 64
@@ -62,21 +80,37 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, state=None, chunk=MLSTM_CHUNK,
                            return_state=return_state)
 
 
-def _mlstm_qkv(p, x: torch.Tensor, cfg: ArchConfig):
-    """Shared pre-cell computation.  Returns (q, k, v, i, f, gate, up)."""
+def _read(w: torch.Tensor, dt: torch.dtype, like: torch.Tensor):
+    """A weight as the reference reads it in a product with ``like``:
+    cast to the activation dtype ``dt``, then widened to ``like``'s dtype
+    (float32 where the decode state made ``like`` float32), as JAX
+    promotes a bfloat16 operand against a float32 one."""
+    return w.to(dt).to(like.dtype)
+
+
+def _mlstm_qkv(p, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
+    """Shared pre-cell computation.  Returns (q, k, v, i, f, gate, up,
+    new_conv_state); ``new_conv_state`` is None without a ``conv_state``
+    (a whole sequence).  With a float32 conv state and a bfloat16 x the
+    conv output is float32, and so are q, k and the gates."""
     dt = x.dtype
     _, _, dh = _dims(cfg)
     up = torch.einsum("btd,du->btu", x, p["w_up"].to(dt))
     gate = F.silu(torch.einsum("btd,du->btu", x, p["w_gate"].to(dt)))
-    c = F.silu(causal_conv1d(p["conv"], up))
-    q = torch.einsum("btu,uhk->bhtk", c, p["w_q"].to(dt))
-    k = torch.einsum("btu,uhk->bhtk", c, p["w_k"].to(dt)) * (dh ** -0.5)
+    if conv_state is None:
+        c, new_conv_state = causal_conv1d(p["conv"], up), None
+    else:
+        c, new_conv_state = causal_conv1d_step(p["conv"], up, conv_state)
+    c = F.silu(c)
+    q = torch.einsum("btu,uhk->bhtk", c, _read(p["w_q"], dt, c))
+    k = torch.einsum("btu,uhk->bhtk", c, _read(p["w_k"], dt, c)) \
+        * (dh ** -0.5)
     v = torch.einsum("btu,uhk->bhtk", up, p["w_v"].to(dt))
-    i_raw = (torch.einsum("btu,uh->bht", c, p["w_i"].to(dt))
+    i_raw = (torch.einsum("btu,uh->bht", c, _read(p["w_i"], dt, c))
              + p["b_i"].to(dt)[None, :, None])
-    f_raw = (torch.einsum("btu,uh->bht", c, p["w_f"].to(dt))
+    f_raw = (torch.einsum("btu,uh->bht", c, _read(p["w_f"], dt, c))
              + 3.0 * p["b_f"].to(dt)[None, :, None])
-    return q, k, v, i_raw, f_raw, gate, up
+    return q, k, v, i_raw, f_raw, gate, up, new_conv_state
 
 
 def _mlstm_out(p, h, gate, cfg: ArchConfig, dtype):
@@ -90,6 +124,175 @@ def _mlstm_out(p, h, gate, cfg: ArchConfig, dtype):
 
 
 def apply_mlstm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    q, k, v, i_raw, f_raw, gate, _ = _mlstm_qkv(p, x, cfg)
+    q, k, v, i_raw, f_raw, gate, _, _ = _mlstm_qkv(p, x, cfg)
     h, _ = _mlstm_chunkwise(q, k, v, i_raw, f_raw, return_state=False)
     return _mlstm_out(p, h.to(x.dtype), gate, cfg, x.dtype)
+
+
+def mlstm_prefill(p, x: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """The block over a whole prompt, and its decode state: the cell's
+    final (C, n, m) in float32 and the last ``conv_width - 1`` up-projected
+    inputs in x's dtype (``repro/models/transformer.py:279-291``, which
+    projects ``up`` a second time, to the same values)."""
+    q, k, v, i_raw, f_raw, gate, up, _ = _mlstm_qkv(p, x, cfg)
+    h, (C, n, m) = _mlstm_chunkwise(q, k, v, i_raw, f_raw)
+    out = _mlstm_out(p, h.to(x.dtype), gate, cfg, x.dtype)
+    return out, {"C": C, "n": n, "m": m,
+                 "conv": up[:, -(cfg.conv_width - 1):, :]}
+
+
+def mlstm_decode_step(q, k, v, i_raw, f_raw, state):
+    """One-token recurrence.  q, k, v: (B,H,1,dh); gates (B,H,1); state
+    (C (B,H,dk,dv), n (B,H,dk), m (B,H)).  Returns (h (B,H,1,dv) in
+    float32, the new state)."""
+    C, n, m = state
+    f32 = torch.float32
+    q1, k1, v1 = (t[:, :, 0].to(f32) for t in (q, k, v))
+    ii = i_raw[:, :, 0].to(f32)
+    ff = F.logsigmoid(f_raw[:, :, 0].to(f32))
+    m_new = torch.maximum(ff + m, ii)
+    f_st = torch.exp(ff + m - m_new)
+    i_st = torch.exp(ii - m_new)
+    C_new = (f_st[..., None, None] * C
+             + i_st[..., None, None] * torch.einsum("bhd,bhv->bhdv", k1, v1))
+    n_new = f_st[..., None] * n + i_st[..., None] * k1
+    num = torch.einsum("bhd,bhdv->bhv", q1, C_new)
+    den = torch.einsum("bhd,bhd->bh", q1, n_new).abs()
+    h = num / torch.maximum(den, torch.exp(-m_new))[..., None]
+    return h[:, :, None, :], (C_new, n_new, m_new)
+
+
+def mlstm_decode_init(cfg: ArchConfig, batch: int, device=None) -> Dict:
+    """Decode state, float32 whatever the activation dtype (the
+    reference's ``init_block_state`` never passes one)."""
+    d_up, H, dh = _dims(cfg)
+    f32 = torch.float32
+    return {
+        "C": torch.zeros((batch, H, dh, dh), dtype=f32, device=device),
+        "n": torch.zeros((batch, H, dh), dtype=f32, device=device),
+        "m": torch.full((batch, H), -1e30, dtype=f32, device=device),
+        "conv": conv_decode_init(batch, d_up, cfg.conv_width, dtype=f32,
+                                 device=device),
+    }
+
+
+def apply_mlstm_decode(p, x: torch.Tensor, cfg: ArchConfig, state: Dict
+                       ) -> Tuple[torch.Tensor, Dict]:
+    q, k, v, i_raw, f_raw, gate, _, conv_state = _mlstm_qkv(
+        p, x, cfg, conv_state=state["conv"])
+    h, (C, n, m) = mlstm_decode_step(q, k, v, i_raw, f_raw,
+                                     (state["C"], state["n"], state["m"]))
+    out = _mlstm_out(p, h.to(x.dtype), gate, cfg, x.dtype)
+    return out, {"C": C, "n": n, "m": m, "conv": conv_state}
+
+
+# --------------------------------------------------------------------------- #
+# sLSTM
+# --------------------------------------------------------------------------- #
+
+def slstm_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    d, H = cfg.d_model, cfg.num_heads
+    dh = d // H
+    return {
+        "w_x": ParamSpec((d, 4, d), ("embed", None, "rnn")),     # i,f,z,o
+        "r_h": ParamSpec((H, dh, 4, dh), (None, None, None, None), scale=0.5),
+        "bias": ParamSpec((4, d), (None, None), init="zeros"),
+        "w_out": ParamSpec((d, d), ("rnn", "embed")),
+    }
+
+
+SLSTMState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _slstm_cell(gates: torch.Tensor, state: SLSTMState) -> SLSTMState:
+    """gates: (B, 4, D) raw; state (c, n, m, h) each (B, D) float32."""
+    c, n, m, _ = state
+    i_raw, f_raw, z_raw, o_raw = gates.float().unbind(1)
+    log_f = F.logsigmoid(f_raw)
+    m_new = torch.maximum(log_f + m, i_raw)
+    i_st = torch.exp(i_raw - m_new)
+    f_st = torch.exp(log_f + m - m_new)
+    z = torch.tanh(z_raw)
+    o = torch.sigmoid(o_raw)
+    c_new = f_st * c + i_st * z
+    n_new = f_st * n + i_st
+    h_new = o * c_new / torch.clamp_min(n_new, 1.0)
+    return c_new, n_new, m_new, h_new
+
+
+def _slstm_gx(p, x: torch.Tensor) -> torch.Tensor:
+    """The input part of the gates, ``x @ w_x``: (..., D) -> (..., 4, D)."""
+    return torch.einsum("...d,dgk->...gk", x, p["w_x"].to(x.dtype))
+
+
+def _slstm_gh(p, h_prev: torch.Tensor, cfg: ArchConfig,
+              dt: torch.dtype) -> torch.Tensor:
+    """The recurrent part: the block-diagonal ``h_{t-1} @ r_h`` (one
+    block per head), (B, D) -> (B, 4, D) in ``dt``."""
+    B, D = h_prev.shape
+    H = cfg.num_heads
+    hh = h_prev.reshape(B, H, D // H).to(dt)
+    gh = torch.einsum("bhk,hkgj->bghj", hh, p["r_h"].to(dt))
+    return gh.reshape(B, 4, D)
+
+
+def _slstm_gates(p, xt: torch.Tensor, h_prev: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    """xt: (B, D); h_prev: (B, D) -> raw gates (B, 4, D)."""
+    return (_slstm_gx(p, xt) + _slstm_gh(p, h_prev, cfg, xt.dtype)
+            + p["bias"].to(xt.dtype))
+
+
+def slstm_decode_init(cfg: ArchConfig, batch: int, device=None) -> Dict:
+    """Decode state (c, n, m, h), float32."""
+    D = cfg.d_model
+    z = lambda: torch.zeros((batch, D), dtype=torch.float32,  # noqa: E731
+                            device=device)
+    return {"c": z(), "n": z(),
+            "m": torch.full((batch, D), -1e30, dtype=torch.float32,
+                            device=device), "h": z()}
+
+
+def _slstm_walk(p, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, SLSTMState]:
+    """The recurrence over x (B, T, D) from the zero state: (h (B, T, D)
+    float32, the final (c, n, m, h))."""
+    B, T, D = x.shape
+    gx = _slstm_gx(p, x)                      # (B, T, 4, D), all T at once
+    bias = p["bias"].to(x.dtype)
+    state = tuple(slstm_decode_init(cfg, B, x.device)[k]
+                  for k in ("c", "n", "m", "h"))
+    hs = []
+    for t in range(T):
+        gates = gx[:, t] + _slstm_gh(p, state[3], cfg, x.dtype) + bias
+        state = _slstm_cell(gates, state)
+        hs.append(state[3])
+    return torch.stack(hs, 1), state
+
+
+def _slstm_out(p, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return torch.einsum("btd,de->bte", h.to(dt), p["w_out"].to(dt))
+
+
+def apply_slstm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    return _slstm_out(p, _slstm_walk(p, x, cfg)[0], x.dtype)
+
+
+def slstm_prefill(p, x: torch.Tensor, cfg: ArchConfig
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """The block over a whole prompt and its final state, from one walk
+    (``repro/models/transformer.py:288-291`` and ``:318
+    _slstm_final_state`` walk twice, to the same values)."""
+    hs, (c, n, m, h) = _slstm_walk(p, x, cfg)
+    return _slstm_out(p, hs, x.dtype), {"c": c, "n": n, "m": m, "h": h}
+
+
+def apply_slstm_decode(p, x: torch.Tensor, cfg: ArchConfig, state: Dict
+                       ) -> Tuple[torch.Tensor, Dict]:
+    xt = x[:, 0]
+    gates = _slstm_gates(p, xt, state["h"], cfg)
+    c, n, m, h = _slstm_cell(gates, (state["c"], state["n"], state["m"],
+                                     state["h"]))
+    return _slstm_out(p, h[:, None, :], x.dtype), {"c": c, "n": n, "m": m,
+                                                   "h": h}

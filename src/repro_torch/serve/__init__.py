@@ -1,2 +1,3 @@
 """Serving path of the port: the slot-based continuous-batching engine
-(``engine``) and token sampling (``sampling``)."""
+(``engine``), token sampling (``sampling``) and the xLSTM serve fixture's
+replay (``golden``)."""

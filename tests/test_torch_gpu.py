@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels, the lane engine, the
-forecaster, the RecurrentGemma serving path and the training path on
-CUDA.
+forecaster, the RecurrentGemma and xLSTM serving paths and the training
+path on CUDA.
 
 Every test here is marked ``gpu`` and skips itself without a CUDA card
 (the kernels have no CPU mode).  On the card::
@@ -235,7 +235,10 @@ def test_lane_kernel_zero_lanes_and_limits(cuda):
 # 128); then the row kernel's envelope from both sides: L = 32 with
 # dk = dv = 64 and a state in and out, several chunks with a state, an
 # odd number of (b, h) at L <= 16 (two a warp), bfloat16 with a state,
-# and just outside it (dk not a whole 16-byte row, dk = 96, L = 64).
+# and just outside it (dk not a whole 16-byte row, dk = 96, L = 64);
+# last, xLSTM-125M's 384-wide heads (the serving prefill's shape, cut in
+# T, in bfloat16; float32 with a state in and out; T = L = 64 in both
+# dtypes) and a dk of two ragged 128-column panels.
 MLSTM_CASES = (
     (8668, 2, 16, 32, 32, 64, "float32", False),
     (1, 1, 128, 64, 64, 64, "float32", False),
@@ -254,6 +257,11 @@ MLSTM_CASES = (
     (1, 2, 32, 18, 36, 16, "float32", True),
     (2, 1, 32, 96, 32, 32, "float32", False),
     (3, 2, 64, 32, 32, 64, "bfloat16", True),
+    (1, 4, 1024, 384, 384, 64, "bfloat16", False),
+    (2, 4, 192, 384, 384, 64, "float32", True),
+    (1, 4, 64, 384, 384, 64, "float32", False),
+    (1, 4, 64, 384, 384, 64, "bfloat16", True),
+    (2, 1, 48, 200, 72, 16, "float32", True),
 )
 # tests/test_kernels.py:160's tolerances: float32 sums in another order,
 # bfloat16 outputs rounded.
@@ -332,8 +340,8 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
         mlstm.mlstm_chunkwise(q.half(), k, v, i, f)
     with pytest.raises(ValueError, match="device"):
         mlstm.mlstm_chunkwise(q, k.cpu(), v, i, f)
-    with pytest.raises(ValueError, match="dk <= 128"):
-        big, _ = _mlstm_inputs((1, 1, 16, 384, 8, 16, "float32", False), cuda)
+    with pytest.raises(ValueError, match="dk <= 384"):
+        big, _ = _mlstm_inputs((1, 1, 16, 385, 8, 16, "float32", False), cuda)
         mlstm.mlstm_chunkwise(*big)
     with pytest.raises(ValueError, match="row kernel"):
         odd, _ = _mlstm_inputs((1, 1, 16, 18, 8, 16, "float32", False), cuda)
@@ -671,6 +679,26 @@ def test_serve_golden_fixture_on_cuda(cuda):
     for r, want in zip(reqs, fx["engine_tokens"]):
         assert r.tokens == [int(t) for t in want if t >= 0]
     assert flash.launches > before[0] and rglru.launches > before[1]
+
+
+XLSTM_GOLDEN = Path(__file__).resolve().parent / "data" / \
+    "torch_xlstm_serve_golden" / "expected.npz"
+
+
+@pytest.mark.gpu
+def test_xlstm_golden_fixture_on_cuda(cuda):
+    """The float32 xLSTM-125M twin of ``tests/data/torch_xlstm_serve_golden``
+    (full width, 8 layers) on the card, through the mLSTM block kernel at
+    dk 384: JAX's logits within ``golden.TOL`` and its greedy engine
+    tokens, stamps and metrics exactly (tests/test_torch_xlstm.py makes
+    the fixture)."""
+    from repro_torch.serve import golden
+    with np.load(XLSTM_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    before = mlstm.launches - mlstm.row_launches
+    report = golden.replay(fx, cuda)
+    assert report["ok"], report
+    assert mlstm.launches - mlstm.row_launches > before
 
 
 TRAIN_GOLDEN = Path(__file__).resolve().parent / "data" / \

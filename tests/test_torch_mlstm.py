@@ -143,8 +143,8 @@ def test_kernel_path_rejects_cpu_tensors_before_building(monkeypatch):
 def test_kernel_path_limits_raise_naming_them(monkeypatch):
     monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built"))
     cuda = port_kernel._mlstm_chunkwise_cuda
-    with pytest.raises(ValueError, match="dk <= 128"):
-        cuda(*_t(_inputs(1, 1, 16, 384)), None, 16, True)
+    with pytest.raises(ValueError, match="dk <= 384"):
+        cuda(*_t(_inputs(1, 1, 16, 385)), None, 16, True)
     with pytest.raises(ValueError, match="limit of 64"):
         cuda(*_t(_inputs(1, 1, 128, 8)), None, 128, True)
     with pytest.raises(ValueError, match="multiple of the chunk"):
