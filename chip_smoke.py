@@ -35,13 +35,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    32, a given initial state and the returned final state, the row
    kernel's envelope from both sides, xLSTM-125M's 384-wide heads (the
    serving prefill's shape (1, 4, 3072, 384) bfloat16 with the state out,
-   float32 with a state in and out, T = L = 64 in both dtypes) and the
-   forecaster's training batch (B 64) (each case through the kernel the
-   wrapper picks; both kernels must be reached); at the forecaster's
-   shape the row kernel, the block kernel and the plain version, and at
-   xLSTM's prefill shape the block kernel and the plain version, timed by
-   CUDA events with the launches queued behind a device sleep, beside
-   the bound;
+   float32 with a state in and out, T = L = 64 in both dtypes), the
+   parallel kernel's envelope (a state in and out, B*H > 4, dv != dk,
+   T 3008) and the forecaster's training batch (B 64) (each case through
+   the kernel the wrapper picks; all three kernels must be reached; the
+   parallel kernel's cases also against its algorithm in plain PyTorch
+   with the same bfloat16 hi/lo operands); at the forecaster's shape the
+   row kernel, the block kernel and the plain version, and at xLSTM's
+   prefill shape with T 256, 1024, 2048 and 3072 the parallel kernel and
+   the block kernel side by side (and the plain version at T 3072), timed
+   by CUDA events with the launches queued behind a device sleep, each
+   beside its bound and with its largest error as a share of the
+   tolerance;
 7. forecast golden — ``load_forecaster`` on the fixture
    ``tests/data/torch_forecaster_golden`` (a forecaster trained and
    saved by the JAX package, and its outputs): the dataset rebuilt with
@@ -118,7 +123,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (a float32 xLSTM-125M twin at full width cut to 8 layers, its
    parameters redrawn from the fixture's seed and checked by digest;
    JAX's prefill and decode logits and greedy engine tokens): the port
-   on the card through the mLSTM block kernel at dk 384 reproduces them
+   on the card through the mLSTM block kernel at dk 384 (float32 calls
+   never take the parallel kernel) reproduces them
    (``repro_torch.serve.golden.replay``);
 18. xlstm serve main — full-width xLSTM-125M (12 layers, 184.2 M
    parameters drawn on the card in bfloat16 from a seeded CUDA
@@ -126,10 +132,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    greedy, 16 requests at t = 0 with prompts of 64 × [4, 48] tokens and
    64 new tokens each, through ``run_server``: tokens/s, mean TTFT,
    prefill ms by prompt length, decode step ms, peak device memory, the
-   mLSTM block kernel's launches (the run fails without them), profiled
-   windows of decode steps and of one prefill, one sLSTM layer's prefill
-   walk, and decode logits against teacher-forced ``forward_train``
-   logits for the longest prompt.
+   mLSTM kernels' launches (the run fails unless every prefill call took
+   the parallel kernel), profiled windows of decode steps and of one
+   prefill, one sLSTM layer's prefill walk, and decode logits against
+   teacher-forced ``forward_train`` logits for the longest prompt.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -654,6 +660,9 @@ MLSTM_TRAIN_CASE = (64, 2, 16, 32, 32, 64, "float32", False)
 # k, v (1, 4, 3072, 384) bfloat16, chunk 64, the final state out; timed
 # in phase 6 and the serving shape of phase 13's gradient check.
 MLSTM_XLSTM_CASE = (1, 4, 3072, 384, 384, 64, "bfloat16", False)
+# Prefill lengths at which phase 6 times the parallel kernel beside the
+# block kernel (the serve cell's prompts run 256-3008 tokens).
+MLSTM_XLSTM_TIMED_T = (256, 1024, 2048, 3072)
 
 # (B, H, T, dk, dv, chunk, dtype, initial state): the forecaster's cell at
 # the golden dataset's batch (the main path's call; first), the JAX kernel
@@ -664,7 +673,9 @@ MLSTM_XLSTM_CASE = (1, 4, 3072, 384, 384, 64, "bfloat16", False)
 # warp, bfloat16 with a state) and a dk just outside it; xLSTM-125M's
 # 384-wide heads (the serving prefill's shape, MLSTM_XLSTM_CASE, with the
 # state out; float32 with a state in and out; T = L = 64 in both
-# dtypes); last, the forecaster's training shape.
+# dtypes); the parallel kernel's envelope (a state in and out at dk 384,
+# B*H > 4 with dv != dk, T 3008 with dv > dk); last, the forecaster's
+# training shape.
 MLSTM_CASES = (
     (8668, 2, 16, 32, 32, 64, "float32", False),
     (1, 1, 128, 64, 64, 64, "float32", False),
@@ -684,6 +695,9 @@ MLSTM_CASES = (
     (2, 4, 256, 384, 384, 64, "float32", True),
     (1, 4, 64, 384, 384, 64, "float32", False),
     (1, 4, 64, 384, 384, 64, "bfloat16", False),
+    (2, 4, 256, 384, 384, 64, "bfloat16", True),
+    (5, 2, 192, 64, 128, 64, "bfloat16", True),
+    (3, 2, 3008, 128, 320, 64, "bfloat16", True),
     MLSTM_TRAIN_CASE,
 )
 
@@ -727,10 +741,17 @@ def _mlstm_state_work(B, H, dk, dv, L):
     return B * H * (dk * dv + dk + 1) * 4, B * H * 2 * L * dk * dv
 
 
+def _share_of_tol(a, b, tol) -> float:
+    """The largest |a - b| over what allclose allows at that element: the
+    margin left under the tolerance (1 = none)."""
+    return float(((a.float() - b.float()).abs()
+                  / (tol["atol"] + tol["rtol"] * b.float().abs())).max())
+
+
 def phase_mlstm(torch, np, dev) -> dict:
     from repro_torch.kernels import mlstm_chunkwise as mlstm
     results = {}
-    before = (mlstm.launches, mlstm.row_launches)
+    before = (mlstm.launches, mlstm.row_launches, mlstm.parallel_launches)
     for case in MLSTM_CASES:
         B, H, T, dk, dv, chunk, dtype, with_state = case
         name = f"{B}x{H}x{T}x{dk}x{dv}/L{min(chunk, T)}/{dtype}" + (
@@ -744,32 +765,41 @@ def phase_mlstm(torch, np, dev) -> dict:
         pairs = [(h.float(), want_h.float())] + list(zip(s, want_s))
         ok = h.dtype == want_h.dtype and all(
             torch.allclose(a, b, **tol) for a, b in pairs)
-        rows = mlstm.takes_row_kernel(min(chunk, T), dk, dv,
-                                      getattr(torch, dtype), inputs)
+        kernel = mlstm.pick_kernel(min(chunk, T), dk, dv,
+                                   getattr(torch, dtype), inputs,
+                                   state or ())
         results[name] = {
             "dtype": dtype, "state_in": with_state, "match": ok,
             "dk": dk,
-            "kernel": "mlstm_rows" if rows else "mlstm_chunkwise",
+            "kernel": {"rows": "mlstm_rows", "block": "mlstm_chunkwise",
+                       "parallel": "mlstm_parallel"}[kernel],
             "max_abs_err_h": float((pairs[0][0] - pairs[0][1]).abs().max()),
             "max_abs_err_state": max(float((a - b).abs().max())
                                      for a, b in pairs[1:]),
-            # The largest |error| over what allclose allows at that
-            # element: the margin left under the tolerance (1 = none).
-            "worst_share_of_tol": max(
-                float(((a - b).abs() / (tol["atol"] + tol["rtol"] * b.abs()))
-                      .max()) for a, b in pairs)}
+            "worst_share_of_tol": max(_share_of_tol(a, b, tol)
+                                      for a, b in pairs)}
+        if kernel == "parallel":
+            # Against the kernel's own algorithm with its bfloat16 hi/lo
+            # operands: what remains is summation order.
+            ph, ps = mlstm.mlstm_chunkwise_parallel_plain(
+                *inputs, state=state, chunk=chunk, rounding="bf16x2")
+            results[name]["worst_share_of_tol_vs_parallel_plain"] = max(
+                _share_of_tol(a, b, tol)
+                for a, b in [(h, ph)] + list(zip(s, ps)))
         if not ok:
             emit({"phase": "mlstm", "cases": results})
             raise SystemExit(f"mlstm_chunkwise disagrees with its plain "
                              f"version on {name}")
     row_launches = mlstm.row_launches - before[1]
-    block_launches = mlstm.launches - before[0] - row_launches
-    if not row_launches or not block_launches:
-        raise SystemExit("mlstm cases did not reach both kernels")
+    parallel_launches = mlstm.parallel_launches - before[2]
+    block_launches = (mlstm.launches - before[0] - row_launches
+                      - parallel_launches)
+    if not (row_launches and block_launches and parallel_launches):
+        raise SystemExit("mlstm cases did not reach all three kernels")
     # The forecaster's shape: the row kernel (the wrapper's pick), the
-    # block kernel (the kernel outside the row kernel's envelope, which
-    # takes xLSTM's heads) on the same inputs, and the plain version, each
-    # timed by CUDA events behind a device sleep.
+    # block kernel (the kernel outside the other two envelopes) on the
+    # same inputs, and the plain version, each timed by CUDA events behind
+    # a device sleep.
     case = MLSTM_CASES[0]
     B, H, T, dk, dv, chunk = case[:6]
     L = min(chunk, T)
@@ -780,7 +810,7 @@ def phase_mlstm(torch, np, dev) -> dict:
     want_h, _ = mlstm.mlstm_chunkwise_plain(*inputs, chunk=chunk,
                                             return_state=False)
     block_h, _ = mlstm._mlstm_chunkwise_cuda(*inputs, None, chunk, False,
-                                             rows=False)
+                                             kernel="block")
     torch.cuda.synchronize()
     if not torch.allclose(block_h, want_h, **MLSTM_TOL["float32"]):
         raise SystemExit("mlstm block kernel disagrees with its plain "
@@ -789,7 +819,7 @@ def phase_mlstm(torch, np, dev) -> dict:
         "kernel": lambda: mlstm.mlstm_chunkwise(*inputs, chunk=chunk,
                                                 return_state=False),
         "block_kernel": lambda: mlstm._mlstm_chunkwise_cuda(
-            *inputs, None, chunk, False, rows=False),
+            *inputs, None, chunk, False, kernel="block"),
         "plain": lambda: mlstm.mlstm_chunkwise_plain(*inputs, chunk=chunk,
                                                      return_state=False),
     }
@@ -801,38 +831,92 @@ def phase_mlstm(torch, np, dev) -> dict:
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
-    # xLSTM-125M's prefill shape: the block kernel (the wrapper's pick)
-    # and the plain version, with the state out, as the serving path
-    # calls them.
+    del inputs, want_h, block_h
+    # xLSTM-125M's prefill shape at several lengths, with the state out as
+    # the serving path asks for it: the parallel kernel (the wrapper's
+    # pick, bf16 tensor cores: bound by bytes) and the block kernel
+    # (float32 on the CUDA cores: bound by its float32 operations)
+    # on the same inputs, each against the plain version.
+    x_by_t = {}
+    xlstm_tol = MLSTM_TOL[MLSTM_XLSTM_CASE[6]]
+    for T in MLSTM_XLSTM_TIMED_T:
+        B, H, _, dk, dv, chunk = MLSTM_XLSTM_CASE[:6]
+        x_case = (B, H, T) + MLSTM_XLSTM_CASE[3:]
+        x_inputs, _ = _mlstm_inputs(torch, np, x_case, dev)
+        want_h, want_s = mlstm.mlstm_chunkwise_plain(*x_inputs, chunk=chunk)
+        if mlstm.pick_kernel(chunk, dk, dv, x_inputs[0].dtype,
+                             x_inputs) != "parallel":
+            raise SystemExit("mlstm: xLSTM's prefill falls outside the "
+                             "parallel kernel's envelope")
+        runs = {"parallel": lambda: mlstm.mlstm_chunkwise(
+                    *x_inputs, chunk=chunk),
+                "block": lambda: mlstm._mlstm_chunkwise_cuda(
+                    *x_inputs, None, chunk, True, kernel="block")}
+        nbytes_x, ops_x = (a + b for a, b in zip(
+            _mlstm_work(B, H, T, dk, dv, chunk, 2),
+            _mlstm_state_work(B, H, dk, dv, chunk)))
+        bytes_x = nbytes_x / HBM_BYTES_PER_S * 1e3
+        row = {"bytes": nbytes_x, "flops": ops_x}
+        for kname, run in runs.items():
+            h, st = run()
+            torch.cuda.synchronize()
+            ops_rate = BF16_OPS_PER_S if kname == "parallel" \
+                else FP32_OPS_PER_S
+            ops_x_ms = ops_x / ops_rate * 1e3
+            t = _queued_ms(torch, run, 50 if kname == "parallel" else 10,
+                           warmup=3)
+            bound = max(bytes_x, ops_x_ms)
+            row[kname] = {
+                "ms": t["ms"], "timed": t, "bound_ms": bound,
+                "bound_by": "bytes" if bytes_x >= ops_x_ms
+                            else "operations",
+                "ops_rate": ops_rate, "share_of_bound": bound / t["ms"],
+                "max_abs_err": max(float((a.float() - b.float()).abs()
+                                         .max()) for a, b in
+                                   [(h, want_h)] + list(zip(st, want_s))),
+                "worst_share_of_tol": max(
+                    _share_of_tol(a, b, xlstm_tol)
+                    for a, b in [(h, want_h)] + list(zip(st, want_s)))}
+            del h, st
+        if T == MLSTM_XLSTM_CASE[2]:
+            row["plain_ms"] = _queued_ms(
+                torch, lambda: mlstm.mlstm_chunkwise_plain(
+                    *x_inputs, chunk=chunk), 5, warmup=2)["ms"]
+            row["parallel_plain_ms"] = _queued_ms(
+                torch, lambda: mlstm.mlstm_chunkwise_parallel_plain(
+                    *x_inputs, chunk=chunk, rounding="bf16x2"),
+                5, warmup=2)["ms"]
+        row["speedup"] = row["block"]["ms"] / row["parallel"]["ms"]
+        x_by_t[T] = row
+        del x_inputs, want_h, want_s
+        torch.cuda.empty_cache()
+    x = x_by_t[MLSTM_XLSTM_CASE[2]]
     B, H, T, dk, dv, chunk = MLSTM_XLSTM_CASE[:6]
-    x_inputs, _ = _mlstm_inputs(torch, np, MLSTM_XLSTM_CASE, dev)
-    x_timed = {
-        "kernel": _queued_ms(torch, lambda: mlstm.mlstm_chunkwise(
-            *x_inputs, chunk=chunk), 20, warmup=3),
-        "plain": _queued_ms(torch, lambda: mlstm.mlstm_chunkwise_plain(
-            *x_inputs, chunk=chunk), 5, warmup=2)}
-    nbytes, ops = (a + b for a, b in zip(
-        _mlstm_work(B, H, T, dk, dv, min(chunk, T), 2),
-        _mlstm_state_work(B, H, dk, dv, min(chunk, T))))
-    x_bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    x_ops_ms = ops / FP32_OPS_PER_S * 1e3
-    x_bound = max(x_bytes_ms, x_ops_ms)
-    xlstm = {"shape": [B, H, T, dk, dv], "chunk": min(chunk, T),
+    xlstm = {"shape": [B, H, T, dk, dv], "chunk": chunk,
              "dtype": MLSTM_XLSTM_CASE[6], "state_out": True,
-             "kernel": "mlstm_chunkwise",
-             "kernel_ms": x_timed["kernel"]["ms"],
-             "plain_ms": x_timed["plain"]["ms"], "library_ms": None,
-             "timed": x_timed, "bytes": nbytes, "flops": ops,
-             "bound_ms": x_bound,
-             "bound_by": "bytes" if x_bytes_ms >= x_ops_ms else "operations",
-             "share_of_bound": x_bound / x_timed["kernel"]["ms"],
+             "kernel": "mlstm_parallel",
+             "kernel_ms": x["parallel"]["ms"],
+             "block_kernel_ms": x["block"]["ms"],
+             "plain_ms": x["plain_ms"],
+             "parallel_plain_ms": x["parallel_plain_ms"], "library_ms": None,
+             "bytes": x["bytes"], "flops": x["flops"],
+             "bound_ms": x["parallel"]["bound_ms"],
+             "bound_by": x["parallel"]["bound_by"],
+             "share_of_bound": x["parallel"]["share_of_bound"],
+             "block_bound_ms": x["block"]["bound_ms"],
+             "block_bound_by": x["block"]["bound_by"],
+             "block_share_of_bound": x["block"]["share_of_bound"],
+             "by_T": x_by_t,
              "max_abs_err": max(
                  max(r["max_abs_err_h"], r["max_abs_err_state"])
-                 for r in results.values() if r["dk"] == dk)}
-    del x_inputs
+                 for r in results.values()
+                 if r["kernel"] == "mlstm_parallel"),
+             "worst_share_of_tol": max(
+                 r["worst_share_of_tol"] for r in results.values()
+                 if r["kernel"] == "mlstm_parallel")}
     f32 = [r for r in results.values() if r["dtype"] == "float32"]
     line = {"phase": "mlstm", "cases": results, "tolerance": MLSTM_TOL,
-            "shape": [B, H, T, dk, dv], "chunk": L,
+            "shape": list(case[:5]), "chunk": L,
             "timing": "CUDA events, launches queued behind a device sleep",
             "kernel": "mlstm_rows", "kernel_ms": ms["kernel"],
             "block_kernel_ms": ms["block_kernel"],
@@ -842,15 +926,19 @@ def phase_mlstm(torch, np, dev) -> dict:
             "bound_ms": bound_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "share_of_bound": {k: bound_ms / v for k, v in ms.items()},
-            "block_kernel_max_abs_err": float((block_h - want_h).abs().max()),
-            "launches": {"rows": row_launches,
-                         "block": block_launches},
+            "launches": {"rows": row_launches, "block": block_launches,
+                         "parallel": parallel_launches},
             "max_abs_err": max(max(r["max_abs_err_h"], r["max_abs_err_state"])
                                for r in f32),
+            # float32 cases for the row and block kernels, as before the
+            # parallel kernel (which takes only bfloat16) came.
             "max_abs_err_by_kernel": {
                 kernel: max(max(r["max_abs_err_h"], r["max_abs_err_state"])
-                            for r in f32 if r["kernel"] == kernel)
-                for kernel in ("mlstm_rows", "mlstm_chunkwise")},
+                            for r in (results.values()
+                                      if kernel == "mlstm_parallel" else f32)
+                            if r["kernel"] == kernel)
+                for kernel in ("mlstm_rows", "mlstm_chunkwise",
+                               "mlstm_parallel")},
             "max_abs_err_bf16": max(r["max_abs_err_h"] for r in
                                     results.values()
                                     if r["dtype"] == "bfloat16"),
@@ -1661,18 +1749,21 @@ def phase_xlstm_golden(torch, np, dev) -> dict:
     xLSTM-125M twin at full width, 8 layers, parameters redrawn from the
     fixture's seed and checked by digest; JAX's prefill and decode logits
     and greedy engine tokens): the port on the card through the mLSTM
-    block kernel at dk 384 reproduces them."""
+    block kernel at dk 384 reproduces them (a float32 call never takes
+    the parallel kernel)."""
     from repro_torch.kernels import mlstm_chunkwise as mlstm
     from repro_torch.serve import golden
     with np.load(XLSTM_GOLDEN, allow_pickle=False) as z:
         fx = {key: z[key] for key in z.files}
     t0 = time.perf_counter()
-    before = (mlstm.launches, mlstm.row_launches)
+    before = (mlstm.launches, mlstm.row_launches, mlstm.parallel_launches)
     report = golden.replay(fx, dev)
     rows = mlstm.row_launches - before[1]
-    block = mlstm.launches - before[0] - rows
+    parallel = mlstm.parallel_launches - before[2]
+    block = mlstm.launches - before[0] - rows - parallel
     line = {"phase": "xlstm_golden", "layers": golden.LAYERS, **report,
             "mlstm_block_launches": block, "mlstm_row_launches": rows,
+            "mlstm_parallel_launches": parallel,
             "seconds": time.perf_counter() - t0}
     emit(line)
     if not report["ok"] or block == 0:
@@ -1711,19 +1802,22 @@ def phase_xlstm_serve_main(torch, np, dev) -> dict:
                       for t in _leaves(eng.states))
 
     def reset_counts():
-        mlstm.launches = mlstm.row_launches = 0
+        mlstm.launches = mlstm.row_launches = mlstm.parallel_launches = 0
 
     metrics, wall, prefill_ms, step_ms, peak = _drive_engine(
         torch, eng, reqs, reset_counts)
-    launches = {"mlstm_chunkwise": mlstm.launches - mlstm.row_launches,
+    launches = {"mlstm_parallel": mlstm.parallel_launches,
+                "mlstm_chunkwise": mlstm.launches - mlstm.row_launches
+                - mlstm.parallel_launches,
                 "mlstm_rows": mlstm.row_launches}
     bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
            or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
     if bad or metrics["requests"] != SERVE_REQUESTS:
         raise SystemExit(f"xlstm serve main: malformed outputs for {bad}")
-    if launches["mlstm_chunkwise"] == 0:
-        raise SystemExit(f"xlstm serve main ran without launching the mLSTM "
-                         f"block kernel: {launches}")
+    if launches["mlstm_parallel"] == 0 or launches["mlstm_chunkwise"] or \
+            launches["mlstm_rows"]:
+        raise SystemExit(f"xlstm serve main: every mLSTM prefill call must "
+                         f"take the parallel kernel: {launches}")
     longest = int(np.argmax(lengths))
     smi, decode_window, prefill_window = _serve_windows(
         torch, eng, params, cfg, prompts, longest)
@@ -2273,7 +2367,7 @@ def main() -> int:
     tm = phase_train_main(torch, np, dev)
     emit({"phase": "train_phases", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    phase_xlstm_golden(torch, np, dev)
+    xg = phase_xlstm_golden(torch, np, dev)
     xs = phase_xlstm_serve_main(torch, np, dev)
     emit({"phase": "xlstm_phases", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{
@@ -2309,21 +2403,54 @@ def main() -> int:
         "design": "a lane per row of a chunk, one or two (b, h) a warp, "
                   "no block barrier; persistent blocks whose warps keep "
                   "the next chunk in a cp.async ring"}, {
+        "name": "mlstm_parallel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mlstm_parallel.cu",
+        "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
+        "launches": xs["launches"]["mlstm_parallel"],
+        "on_main_path": True,
+        "launches_by_path": {
+            "xlstm_serve": xs["launches"]["mlstm_parallel"],
+            "xlstm_golden_float32": xg["mlstm_parallel_launches"]},
+        "edge_case_launches": m["launches"]["parallel"],
+        "shape": m["xlstm"]["shape"], "dtype": m["xlstm"]["dtype"],
+        "max_abs_err": m["xlstm"]["max_abs_err"],
+        "worst_share_of_tol": m["xlstm"]["worst_share_of_tol"],
+        "ms": m["xlstm"]["kernel_ms"], "plain_ms": m["xlstm"]["plain_ms"],
+        "parallel_plain_ms": m["xlstm"]["parallel_plain_ms"],
+        "block_kernel_ms": m["xlstm"]["block_kernel_ms"],
+        "library_ms": None, "bound_ms": m["xlstm"]["bound_ms"],
+        "bound_by": m["xlstm"]["bound_by"],
+        "ms_by_T": {t: r["parallel"]["ms"]
+                    for t, r in m["xlstm"]["by_T"].items()},
+        "design": "chunk-parallel on the tensor cores: a gate pass, a "
+                  "state pass (a warpgroup per (b, h, 64 x 128 tile of C) "
+                  "walking the chunks, the states out as bf16 hi/lo tiles "
+                  "by bulk copy) and an output pass (a warpgroup per (b, "
+                  "h, chunk, 64 columns), wgmma over dk in 64-wide "
+                  "panels)"}, {
         "name": "mlstm_chunkwise", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
         "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
-        "launches": xs["launches"]["mlstm_chunkwise"],
-        "on_main_path": True,
+        "launches": xg["mlstm_block_launches"],
+        "on_main_path": False,
+        "serves": "float32 calls outside the row kernel's envelope (the "
+                  "xLSTM float32 twin of phase 17, float32 edge cases) "
+                  "and bfloat16 calls outside the parallel kernel's (L "
+                  "!= 64, dk or dv not whole 64-wide tiles)",
         "launches_by_path": {
+            "xlstm_golden_float32": xg["mlstm_block_launches"],
             "xlstm_serve": xs["launches"]["mlstm_chunkwise"],
             "forecast": forecast_line["mlstm_launches"]
                         - forecast_line["mlstm_row_launches"]},
         "edge_case_launches": m["launches"]["block"],
         "shape": m["xlstm"]["shape"], "dtype": m["xlstm"]["dtype"],
-        "max_abs_err": m["xlstm"]["max_abs_err"],
-        "ms": m["xlstm"]["kernel_ms"], "plain_ms": m["xlstm"]["plain_ms"],
-        "library_ms": None, "bound_ms": m["xlstm"]["bound_ms"],
-        "bound_by": m["xlstm"]["bound_by"],
+        "max_abs_err": m["max_abs_err_by_kernel"]["mlstm_chunkwise"],
+        "ms": m["xlstm"]["block_kernel_ms"],
+        "plain_ms": m["xlstm"]["plain_ms"],
+        "library_ms": None, "bound_ms": m["xlstm"]["block_bound_ms"],
+        "bound_by": m["xlstm"]["block_bound_by"],
+        "ms_by_T": {t: r["block"]["ms"]
+                    for t, r in m["xlstm"]["by_T"].items()},
         "forecast_shape_ms": m["block_kernel_ms"],
         "design": "a block per (b, h) and 32 columns of C; q and k pass "
                   "through shared memory in 128-column panels, each "

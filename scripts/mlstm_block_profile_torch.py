@@ -113,7 +113,7 @@ def main() -> int:
         i, f = rand(B, H, T), rand(B, H, T, shift=2.0)
         sys.stdout.flush()
         mlstm._mlstm_chunkwise_cuda(q, k, v, i, f, None, 64, True,
-                                    rows=False)
+                                    kernel="block")
         torch.cuda.synchronize()
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

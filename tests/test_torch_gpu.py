@@ -293,15 +293,16 @@ def _mlstm_inputs(case, device):
 def test_mlstm_kernel_matches_plain_on_cuda(cuda, case):
     inputs, state = _mlstm_inputs(case, cuda)
     chunk, dtype = case[5], case[6]
-    rows = mlstm.takes_row_kernel(min(chunk, case[2]), case[3], case[4],
-                                  getattr(torch, dtype), inputs)
-    before = (mlstm.launches, mlstm.row_launches)
+    kernel = mlstm.pick_kernel(min(chunk, case[2]), case[3], case[4],
+                               getattr(torch, dtype), inputs, state or ())
+    before = (mlstm.launches, mlstm.row_launches, mlstm.parallel_launches)
     h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk)
     h_only, none = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk,
                                          return_state=False)
     torch.cuda.synchronize()
     assert mlstm.launches == before[0] + 2 and none is None
-    assert mlstm.row_launches == before[1] + 2 * rows
+    assert mlstm.row_launches == before[1] + 2 * (kernel == "rows")
+    assert mlstm.parallel_launches == before[2] + 2 * (kernel == "parallel")
     want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
                                                  chunk=chunk)
     assert h.dtype == want_h.dtype == getattr(torch, dtype)
@@ -323,9 +324,9 @@ def test_mlstm_both_kernels_agree_in_the_row_envelope(cuda, case):
     chunk, dtype = case[5], case[6]
     want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
                                                  chunk=chunk)
-    for rows in (True, False):
+    for kernel in ("rows", "block"):
         h, s = mlstm._mlstm_chunkwise_cuda(*inputs, state, chunk, True,
-                                           rows=rows)
+                                           kernel=kernel)
         torch.cuda.synchronize()
         torch.testing.assert_close(h.float(), want_h.float(), **TOL[dtype])
         for got, want in zip(s, want_s):
@@ -345,7 +346,82 @@ def test_mlstm_kernel_rejects_what_it_does_not_take(cuda):
         mlstm.mlstm_chunkwise(*big)
     with pytest.raises(ValueError, match="row kernel"):
         odd, _ = _mlstm_inputs((1, 1, 16, 18, 8, 16, "float32", False), cuda)
-        mlstm._mlstm_chunkwise_cuda(*odd, None, 16, True, rows=True)
+        mlstm._mlstm_chunkwise_cuda(*odd, None, 16, True, kernel="rows")
+
+
+# The parallel kernel's envelope (bfloat16, L = 64, dk and dv whole
+# 64-wide tiles up to 384): T = L, several chunks, a state in and out,
+# B*H > 4, dv != dk, T 3008 (the serve cell's longest prompt), and
+# xLSTM-125M's prefill shape.
+MLSTM_PARALLEL_CASES = (
+    (1, 1, 64, 64, 64, 64, "bfloat16", False),
+    (1, 4, 64, 384, 384, 64, "bfloat16", True),
+    (1, 4, 256, 384, 384, 64, "bfloat16", False),
+    (2, 4, 256, 384, 384, 64, "bfloat16", True),
+    (5, 2, 192, 64, 128, 64, "bfloat16", True),
+    (3, 2, 256, 320, 64, 64, "bfloat16", False),
+    (1, 4, 3008, 384, 384, 64, "bfloat16", True),
+    (3, 2, 3008, 128, 320, 64, "bfloat16", False),
+    (1, 4, 3072, 384, 384, 64, "bfloat16", False),
+)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MLSTM_PARALLEL_CASES)
+def test_mlstm_parallel_kernel_matches_plain_on_cuda(cuda, case):
+    """The parallel kernel against the sequential plain version and
+    against its own algorithm in plain PyTorch with the same bfloat16
+    hi/lo operands: h and the final state, with the state out and
+    without."""
+    inputs, state = _mlstm_inputs(case, cuda)
+    before = (mlstm.launches, mlstm.parallel_launches)
+    h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=64)
+    h_only, none = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=64,
+                                         return_state=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(h, h_only)
+    assert mlstm.launches == before[0] + 2
+    assert mlstm.parallel_launches == before[1] + 2
+    for plain in (mlstm.mlstm_chunkwise_plain,
+                  lambda *x, **kw: mlstm.mlstm_chunkwise_parallel_plain(
+                      *x, rounding="bf16x2", **kw)):
+        want_h, want_s = plain(*inputs, state=state, chunk=64)
+        assert h.dtype == want_h.dtype == torch.bfloat16
+        torch.testing.assert_close(h.float(), want_h.float(),
+                                   **TOL["bfloat16"])
+        for got, want in zip(s, want_s):
+            assert got.dtype == torch.float32
+            torch.testing.assert_close(got, want, **TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,kernel", [
+    ((1, 4, 256, 384, 384, 64, "float32", True), "block"),
+    ((1, 4, 256, 384, 384, 32, "bfloat16", False), "block"),
+    ((2, 2, 128, 200, 64, 64, "bfloat16", True), "block"),
+    ((2, 2, 128, 64, 72, 64, "bfloat16", False), "block"),
+    ((2, 2, 64, 32, 32, 16, "bfloat16", False), "rows"),
+])
+def test_mlstm_parallel_rejections_take_the_old_kernels(cuda, case, kernel):
+    """Outside the parallel kernel's envelope (float32, L != 64, dk or dv
+    not whole 64-wide tiles) the wrapper takes the row or block kernel,
+    and naming the parallel kernel raises."""
+    inputs, state = _mlstm_inputs(case, cuda)
+    chunk = case[5]
+    before = (mlstm.launches, mlstm.row_launches, mlstm.parallel_launches)
+    h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk)
+    torch.cuda.synchronize()
+    assert mlstm.launches == before[0] + 1
+    assert mlstm.row_launches == before[1] + (kernel == "rows")
+    assert mlstm.parallel_launches == before[2]
+    want_h, want_s = mlstm.mlstm_chunkwise_plain(*inputs, state=state,
+                                                 chunk=chunk)
+    torch.testing.assert_close(h.float(), want_h.float(), **TOL[case[6]])
+    for got, want in zip(s, want_s):
+        torch.testing.assert_close(got, want, **TOL[case[6]])
+    with pytest.raises(ValueError, match="parallel kernel does not take"):
+        mlstm._mlstm_chunkwise_cuda(*inputs, state, chunk, True,
+                                    kernel="parallel")
 
 
 def _digest(data) -> str:
@@ -611,7 +687,8 @@ def test_flash_gradients_on_cuda_match_plain(cuda, case):
     (3, 1, 32, 24, 20, 16, "float32", True),
     (64, 2, 64, 32, 32, 16, "float32", True),
     (2, 2, 64, 32, 32, 64, "float32", True),
-    (4, 2, 32, 32, 32, 16, "bfloat16", False)])
+    (4, 2, 32, 32, 32, 16, "bfloat16", False),
+    (1, 4, 3072, 384, 384, 64, "bfloat16", False)])
 def test_mlstm_gradients_on_cuda_match_plain(cuda, case):
     inputs, state = _mlstm_inputs(case, cuda)
     chunk = case[5]
@@ -695,10 +772,12 @@ def test_xlstm_golden_fixture_on_cuda(cuda):
     from repro_torch.serve import golden
     with np.load(XLSTM_GOLDEN, allow_pickle=False) as z:
         fx = {key: z[key] for key in z.files}
-    before = mlstm.launches - mlstm.row_launches
+    block = lambda: (mlstm.launches - mlstm.row_launches  # noqa: E731
+                     - mlstm.parallel_launches)
+    before = block()
     report = golden.replay(fx, cuda)
     assert report["ok"], report
-    assert mlstm.launches - mlstm.row_launches > before
+    assert block() > before
 
 
 TRAIN_GOLDEN = Path(__file__).resolve().parent / "data" / \

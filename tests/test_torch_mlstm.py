@@ -3,8 +3,10 @@ and ``repro_torch.models`` against the JAX package.
 
 The same numpy inputs go through the JAX oracle
 ``repro.models.xlstm._mlstm_chunkwise``, the Pallas kernel in interpret
-mode and the port's plain version (the function the CUDA kernel computes;
-the kernel itself runs only on the card, ``tests/test_torch_gpu.py``).
+mode and the port's plain versions (the function the CUDA kernels
+compute, and the parallel kernel's three passes with and without its
+bfloat16 hi/lo operands; the kernels themselves run only on the card,
+``tests/test_torch_gpu.py``).
 Tolerances are the JAX kernel test's (``tests/test_kernels.py:160``):
 float32 ``atol 2e-4, rtol 2e-3`` (sums taken in another order), bfloat16
 ``5e-2``.
@@ -112,6 +114,120 @@ def test_plain_with_initial_state_matches_oracle(B, H, T, dk, dv, chunk):
         np.testing.assert_allclose(_np(got), _np(want), **F32_TOL)
 
 
+# (B, H, T, dk, dv, state in): the parallel kernel's envelope on the
+# CPU: one chunk, several, dv != dk, B*H > 4, xLSTM-125M's 384-wide heads.
+PARALLEL_SHAPES = [(1, 1, 64, 64, 64, False), (2, 3, 192, 64, 128, True),
+                   (1, 2, 64, 128, 64, True), (1, 4, 256, 384, 384, False),
+                   (1, 4, 256, 384, 384, True)]
+
+
+def _parallel_case(B, H, T, dk, dv, with_state, rounding):
+    """The inputs in float32 (rounding None) or in bfloat16 with the
+    kernel's hi/lo operands (the dtype the parallel kernel takes)."""
+    arrays = _inputs(B, H, T, dk, dv, seed=B + T + dk + dv)
+    if rounding is not None:   # the bfloat16 values both sides see
+        arrays = tuple(_np(torch.from_numpy(a).bfloat16()) for a in arrays)
+    state = _state(B, H, dk, dv, seed=T) if with_state else None
+    dtype = torch.float32 if rounding is None else torch.bfloat16
+    tol = F32_TOL if rounding is None else BF16_TOL
+    return arrays, state, dtype, tol
+
+
+@pytest.mark.parametrize("rounding", [None, "bf16x2"])
+@pytest.mark.parametrize("B,H,T,dk,dv,with_state", PARALLEL_SHAPES)
+def test_parallel_plain_matches_jax_oracle(B, H, T, dk, dv, with_state,
+                                           rounding):
+    arrays, state, dtype, tol = _parallel_case(B, H, T, dk, dv, with_state,
+                                               rounding)
+    want_h, want_s = ref_xlstm._mlstm_chunkwise(
+        *_j(arrays), state=None if state is None else _j(state), chunk=64)
+    got_h, got_s = port_kernel.mlstm_chunkwise_parallel_plain(
+        *_t(arrays, dtype), state=None if state is None else _t(state),
+        chunk=64, rounding=rounding)
+    assert got_h.dtype == dtype
+    np.testing.assert_allclose(_np(got_h), _np(want_h), **tol)
+    for got, want in zip(got_s, want_s):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+@pytest.mark.parametrize("rounding", [None, "bf16x2"])
+@pytest.mark.parametrize("B,H,T,dk,dv,with_state",
+                         [s for s in PARALLEL_SHAPES if not s[5]])
+def test_parallel_plain_matches_pallas_kernel_interpret(B, H, T, dk, dv,
+                                                        with_state, rounding):
+    arrays, _, dtype, tol = _parallel_case(B, H, T, dk, dv, False, rounding)
+    want = pallas_mlstm(*_j(arrays), chunk=64, interpret=True)
+    got, none = port_kernel.mlstm_chunkwise_parallel_plain(
+        *_t(arrays, dtype), chunk=64, return_state=False, rounding=rounding)
+    assert none is None
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+def test_parallel_plain_without_rounding_equals_sequential_plain():
+    arrays = _t(_inputs(2, 2, 192, 64, 32, seed=9))
+    state = _t(_state(2, 2, 64, 32))
+    want_h, want_s = port_kernel.mlstm_chunkwise_plain(*arrays, state=state)
+    got_h, got_s = port_kernel.mlstm_chunkwise_parallel_plain(*arrays,
+                                                              state=state)
+    torch.testing.assert_close(got_h, want_h, atol=1e-5, rtol=1e-5)
+    for got, want in zip(got_s, want_s):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    with pytest.raises(ValueError, match="rounding"):
+        port_kernel.mlstm_chunkwise_parallel_plain(*arrays, rounding="fp8")
+
+
+# (L, dk, dv, dtype, kernel): the envelope edges of the three kernels.
+PICKS = [
+    (64, 384, 384, torch.bfloat16, "parallel"),   # xLSTM-125M's prefill
+    (64, 64, 64, torch.bfloat16, "parallel"),
+    (64, 384, 64, torch.bfloat16, "parallel"),
+    (64, 64, 320, torch.bfloat16, "parallel"),
+    (64, 384, 384, torch.float32, "block"),       # float32: never parallel
+    (64, 64, 64, torch.float32, "block"),
+    (32, 384, 384, torch.bfloat16, "block"),      # L != 64
+    (16, 64, 64, torch.bfloat16, "rows"),
+    (64, 200, 384, torch.bfloat16, "block"),      # dk not whole tiles
+    (64, 384, 72, torch.bfloat16, "block"),       # dv not whole tiles
+    (64, 32, 64, torch.bfloat16, "block"),
+    (64, 384, 448, torch.bfloat16, "block"),      # dv past 384
+    (16, 32, 32, torch.float32, "rows"),          # the forecaster
+    (32, 64, 64, torch.float32, "rows"),
+    (16, 32, 18, torch.float32, "block"),      # dv not whole 16-byte rows
+]
+
+
+@pytest.mark.parametrize("L,dk,dv,dtype,kernel", PICKS)
+def test_pick_kernel_at_envelope_edges(monkeypatch, L, dk, dv, dtype, kernel):
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built"))
+    assert port_kernel.pick_kernel(L, dk, dv, dtype) == kernel
+    assert port_kernel.takes_parallel_kernel(L, dk, dv, dtype) == (
+        kernel == "parallel")
+
+
+def test_pick_kernel_sends_unaligned_tensors_past_the_parallel_kernel():
+    q = torch.zeros(1, 1, 64 * 64 + 1, dtype=torch.bfloat16)[0, 0, 1:]
+    assert q.data_ptr() % 16
+    assert port_kernel.pick_kernel(64, 64, 64, torch.bfloat16, (q,)) == \
+        "block"
+
+
+def test_named_kernel_outside_its_envelope_raises_before_building(
+        monkeypatch):
+    monkeypatch.setattr(_build, "load", lambda name: pytest.fail("built"))
+    cuda = port_kernel._mlstm_chunkwise_cuda
+    f32 = _t(_inputs(1, 1, 64, 64))
+    with pytest.raises(ValueError, match="parallel kernel does not take"):
+        cuda(*f32, None, 64, True, kernel="parallel")
+    bf16 = _t(_inputs(1, 1, 64, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="parallel kernel does not take"):
+        cuda(*bf16, None, 32, True, kernel="parallel")
+    with pytest.raises(ValueError, match="no kernel named"):
+        cuda(*bf16, None, 64, True, kernel="tensor")
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda(*bf16, None, 64, True, kernel="parallel")
+
+
 def test_return_state_off_gives_same_h_and_no_state():
     arrays = _t(_inputs(2, 2, 64, 16, seed=4))
     h_full, state = port_kernel.mlstm_chunkwise_plain(*arrays, chunk=16)
@@ -162,8 +278,9 @@ def test_kernel_path_limits_raise_naming_them(monkeypatch):
 
 def test_build_finds_every_port_kernel():
     srcs = _build.sources()
-    assert {"masked_argmin", "mlstm_chunkwise"} <= set(srcs)
+    assert {"masked_argmin", "mlstm_chunkwise", "mlstm_parallel"} <= set(srcs)
     assert srcs["mlstm_chunkwise"].parent.name == "csrc"
+    assert srcs["mlstm_parallel"].parent == srcs["mlstm_chunkwise"].parent
     assert "--use_fast_math" not in _build.NVCC_FLAGS
     from repro_torch.manyworld import _build as old_home
     assert old_home.sources() == srcs and old_home.BUILD_DIR == _build.BUILD_DIR
