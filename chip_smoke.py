@@ -61,12 +61,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 9. flash   — the flash-attention kernel against its plain version on
    edge shapes (bfloat16: the tensor-core kernel's tiles, windows, GQA,
    padded hd), at the serving shape (B 1, 16 query heads, 1 kv head,
-   T 3072, hd 256, window 2048, bfloat16) and at the training shape
-   (B 2, T 4096); device times at T 3072 and
-   1674 of the bf16 kernel, the float32 kernel, the plain version and
-   ``scaled_dot_product_attention`` with the same mask as a yardstick,
-   each with its TFLOP/s and share of the bound; the kernel's registers
-   and spills from the ptxas log;
+   T 3072, hd 256, window 2048, bfloat16), at the MoE cells' shapes
+   (DeepSeekMoE-16B: 16 heads of 128, MHA, causal, T 3072; Granite:
+   GQA 16/8 at hd 64, T 1024) and at the training shape (B 2, T 4096);
+   device times at T 3072 and 1674 of the serving shape and at
+   DeepSeekMoE's shape of the bf16 kernel, the float32 kernel, the
+   plain version and ``scaled_dot_product_attention`` with the same
+   mask as a yardstick, each with its TFLOP/s and share of the bound;
+   the kernel's registers and spills from the ptxas log;
 10. rglru  — the RG-LRU scan kernels against their plain version on
    edge shapes of both (the chunked kernel up to 24 MB of input, the ring
    kernel above), at the serving shape (B 1, T 3072, R 4096, float32
@@ -135,7 +137,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    mLSTM kernels' launches (the run fails unless every prefill call took
    the parallel kernel), profiled windows of decode steps and of one
    prefill, one sLSTM layer's prefill walk, and decode logits against
-   teacher-forced ``forward_train`` logits for the longest prompt.
+   teacher-forced ``forward_train`` logits for the longest prompt;
+19. moe golden — the fixture ``tests/data/torch_moe_serve_golden`` (a
+   float32 DeepSeekMoE-16B twin at full width cut to 3 layers, 1 dense +
+   2 MoE, parameters redrawn from the fixture's seed and checked by
+   digest; JAX's chosen experts, logits of a 1024-token prefill, whose
+   two groups drop choices at capacity 60, and of 8 decode steps, and
+   its greedy engine tokens): the port on the card reproduces them
+   (``repro_torch.serve.golden.replay``), the experts ``==`` (read by
+   wrapping ``moe.route``, ``golden.routing_report``);
+20. moe serve main — full-width DeepSeekMoE-16B (28 layers, 16.38 G
+   parameters drawn on the card in bfloat16 from a seeded CUDA
+   generator) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
+   greedy, 16 requests at t = 0 of 64 new tokens with prompts drawn from
+   {128, ..., 512, 1024, ..., 3072} (the reference's MoE takes at most
+   one group of 512 or whole groups): tokens/s, mean TTFT, prefill ms
+   (the run's, and timed at 512, 1024, 2048 and 3072 tokens), decode
+   step ms, peak device memory with weights and KV cache apart, flash
+   launches (28 a prefill), profiled windows of decode steps and of one
+   prefill, and decode logits against teacher forcing on a 3072-token
+   prompt at capacity factor 8 (nothing dropped, as the reference's
+   consistency test);
+21. granite — full-width Granite-3.0-1B-A400M (GQA 16/8, top-8 of 32,
+   tied embeddings): prefill + 8 decode steps against teacher forcing
+   at capacity factor 8, and one short ``run_server``.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -1283,6 +1308,11 @@ def phase_rglru(torch, np, dev) -> dict:
 # microbatch at the serving heads and window), the last case of
 # FLASH_CASES and the training shape of phase 13's gradient check.
 FLASH_TRAIN_CASE = (2, 16, 1, 4096, 4096, 256, True, 2048, "bfloat16")
+# DeepSeekMoE-16B's attention at its serve cell's longest prompt (phase
+# 20): MHA, 16 heads of 128, causal, no window; timed in phase 9 beside
+# the serving shape.  Granite-3.0-1B-A400M's: GQA 16/8 at hd 64.
+FLASH_MOE_CASE = (1, 16, 16, 3072, 3072, 128, True, 0, "bfloat16")
+FLASH_GRANITE_CASE = (1, 16, 8, 1024, 1024, 64, True, 0, "bfloat16")
 
 # (B, Hq, Hkv, T, S, hd, causal, window, dtype): the serving shape first,
 # then tests/test_kernels.py's sweep (MHA, GQA, MQA with hd 256), a
@@ -1316,6 +1346,8 @@ FLASH_CASES = (
     (1, 2, 1, 50, 90, 32, False, 20, "bfloat16"),
     (1, 2, 1, 70, 70, 33, True, 0, "bfloat16"),
     (1, 3, 1, 1, 1, 64, False, 0, "bfloat16"),
+    FLASH_MOE_CASE,
+    FLASH_GRANITE_CASE,
     FLASH_TRAIN_CASE,
 )
 # Serving-path lengths timed in phase 9: the longest prompt's bucket and
@@ -1365,15 +1397,52 @@ def _flash_work(B, Hq, Hkv, T, S, hd, mask):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def phase_flash(torch, np, dev) -> dict:
+def _flash_name(case) -> str:
+    B, Hq, Hkv, T, S, hd, causal, window, dtype = case
+    return (f"{B}x{Hq}/{Hkv}x{T}x{S}x{hd}/"
+            f"{'causal' if causal else 'full'}/w{window}/{dtype}")
+
+
+def _flash_timed(torch, np, flash, dev, shape) -> dict:
+    """Device time at ``shape`` (B, Hq, Hkv, T, S, hd, causal, window):
+    the bf16 tensor-core kernel, the float32 SIMT kernel on the same
+    values in float32, the plain version and SDPA with the same mask (the
+    yardstick); operations and share of the bf16 bound for each."""
     import torch.nn.functional as F
+    B, Hq, Hkv, T, S, hd, causal, window = shape
+    q, k, v = _flash_inputs(torch, np, (*shape, "bfloat16"), dev)
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    mask = flash._mask(T, S, causal, window, dev)
+    calls = {
+        "kernel": lambda: flash.flash_attention(
+            q, k, v, causal=causal, window=window),
+        "kernel_f32": lambda: flash.flash_attention(
+            q32, k32, v32, causal=causal, window=window),
+        "plain": lambda: flash.flash_attention_plain(
+            q, k, v, causal=causal, window=window),
+        "library": lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True),
+    }
+    timed = {k_: _timed_ms(torch, fn, 20, 3) for k_, fn in calls.items()}
+    ops, nbytes, bound_ms, bound_by = _flash_work(B, Hq, Hkv, T, S, hd, mask)
+    return {
+        "ms": {k_: v_["ms"] for k_, v_ in timed.items()},
+        "tflops": {k_: ops / (v_["ms"] * 1e-3) / 1e12
+                   for k_, v_ in timed.items()},
+        "share_of_bound": {k_: bound_ms / v_["ms"]
+                           for k_, v_ in timed.items()},
+        "timing": timed, "visible_pairs_per_head": int(mask.sum()),
+        "flops": ops, "bytes": nbytes, "bound_ms": bound_ms,
+        "bound_by": bound_by}
+
+
+def phase_flash(torch, np, dev) -> dict:
     from repro_torch import _build
     from repro_torch.kernels import flash_attention as flash
     results = {}
     for case in FLASH_CASES:
         B, Hq, Hkv, T, S, hd, causal, window, dtype = case
-        name = (f"{B}x{Hq}/{Hkv}x{T}x{S}x{hd}/"
-                f"{'causal' if causal else 'full'}/w{window}/{dtype}")
+        name = _flash_name(case)
         q, k, v = _flash_inputs(torch, np, case, dev)
         out = flash.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
@@ -1387,40 +1456,13 @@ def phase_flash(torch, np, dev) -> dict:
             emit({"phase": "flash", "cases": results})
             raise SystemExit(f"flash_attention disagrees with its plain "
                              f"version on {name}")
-    # Device time at the serving shape and a mid-length prompt: the bf16
-    # tensor-core kernel, the float32 SIMT kernel on the same values in
-    # float32, the plain version and SDPA with the same mask (the
-    # yardstick); operations and share of the bf16 bound for each.
+    # Device time at the serving shape and a mid-length prompt, and at
+    # DeepSeekMoE-16B's prefill shape.
     B, Hq, Hkv, _, _, hd, causal, window, _ = FLASH_CASES[0]
-    by_t = {}
-    for T in FLASH_TIMED_T:
-        q, k, v = _flash_inputs(torch, np, (B, Hq, Hkv, T, T, hd, causal,
-                                            window, "bfloat16"), dev)
-        q32, k32, v32 = q.float(), k.float(), v.float()
-        mask = flash._mask(T, T, causal, window, dev)
-        calls = {
-            "kernel": lambda: flash.flash_attention(
-                q, k, v, causal=causal, window=window),
-            "kernel_f32": lambda: flash.flash_attention(
-                q32, k32, v32, causal=causal, window=window),
-            "plain": lambda: flash.flash_attention_plain(
-                q, k, v, causal=causal, window=window),
-            "library": lambda: F.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, enable_gqa=True),
-        }
-        timed = {k_: _timed_ms(torch, fn, 20, 3) for k_, fn in calls.items()}
-        ops, nbytes, bound_ms, bound_by = _flash_work(B, Hq, Hkv, T, T, hd,
-                                                      mask)
-        by_t[T] = {
-            "ms": {k_: v_["ms"] for k_, v_ in timed.items()},
-            "tflops": {k_: ops / (v_["ms"] * 1e-3) / 1e12
-                       for k_, v_ in timed.items()},
-            "share_of_bound": {k_: bound_ms / v_["ms"]
-                               for k_, v_ in timed.items()},
-            "timing": timed, "visible_pairs_per_head": int(mask.sum()),
-            "flops": ops, "bytes": nbytes, "bound_ms": bound_ms,
-            "bound_by": bound_by}
-        del q32, k32, v32
+    by_t = {T: _flash_timed(torch, np, flash, dev, (B, Hq, Hkv, T, T, hd,
+                                                    causal, window))
+            for T in FLASH_TIMED_T}
+    moe = _flash_timed(torch, np, flash, dev, FLASH_MOE_CASE[:8])
     ptxas = _ptxas_by_kernel(
         _build.build_all(["flash_attention"])["flash_attention"]["log"])
     serve = by_t[FLASH_TIMED_T[0]]
@@ -1438,6 +1480,18 @@ def phase_flash(torch, np, dev) -> dict:
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
             "kernel_tflops": serve["tflops"]["kernel"],
             "by_T": by_t, "ptxas": ptxas,
+            "moe_shape": {"shape": list(FLASH_MOE_CASE[:6]),
+                          "causal": True, "window": 0,
+                          "kernel_ms": moe["ms"]["kernel"],
+                          "kernel_f32_ms": moe["ms"]["kernel_f32"],
+                          "plain_ms": moe["ms"]["plain"],
+                          "library_ms": moe["ms"]["library"],
+                          "bound_ms": moe["bound_ms"],
+                          "bound_by": moe["bound_by"],
+                          "flops": moe["flops"], "tflops": moe["tflops"],
+                          "share_of_bound": moe["share_of_bound"],
+                          "max_abs_err": results[_flash_name(
+                              FLASH_MOE_CASE)]["max_abs_err"]},
             # the path's call (the serving shape), then the worst by dtype
             "max_abs_err": next(iter(results.values()))["max_abs_err"],
             "max_abs_err_train": list(results.values())[-1]["max_abs_err"],
@@ -1757,11 +1811,12 @@ def phase_xlstm_golden(torch, np, dev) -> dict:
         fx = {key: z[key] for key in z.files}
     t0 = time.perf_counter()
     before = (mlstm.launches, mlstm.row_launches, mlstm.parallel_launches)
-    report = golden.replay(fx, dev)
+    report = golden.replay(golden.XLSTM, fx, dev)
     rows = mlstm.row_launches - before[1]
     parallel = mlstm.parallel_launches - before[2]
     block = mlstm.launches - before[0] - rows - parallel
-    line = {"phase": "xlstm_golden", "layers": golden.LAYERS, **report,
+    line = {"phase": "xlstm_golden", "layers": golden.XLSTM.layers,
+            **report,
             "mlstm_block_launches": block, "mlstm_row_launches": rows,
             "mlstm_parallel_launches": parallel,
             "seconds": time.perf_counter() - t0}
@@ -1867,6 +1922,239 @@ def phase_xlstm_serve_main(torch, np, dev) -> dict:
     if not consistency["within_limit"]:
         raise SystemExit("xlstm serve main: decode logits disagree with "
                          "teacher forcing at full width")
+    return line
+
+
+MOE_GOLDEN = ROOT / "tests" / "data" / "torch_moe_serve_golden" / \
+    "expected.npz"
+# The DeepSeekMoE-16B cell's prompt lengths, drawn from seed 0: at most
+# one group (512 tokens) or a whole number of groups, as the reference's
+# apply_moe takes them.
+MOE_PROMPT_LENS = (128, 256, 384, 512, 1024, 1536, 2048, 2560, 3072)
+MOE_PREFILL_TIMED = (512, 1024, 2048, 3072)
+# Teacher forcing of the MoE cells at a capacity no group overflows, as
+# the reference's own consistency test (tests/test_models_consistency.py):
+# at T = 1 a decode step drops nothing, a full sequence at 1.25 would.
+MOE_CONSISTENCY_CF = 8.0
+MOE_TF_PROMPT = 3072
+GRANITE_TF_PROMPT = 1024
+GRANITE_REQS = ((64, 16), (512, 16), (1024, 16), (37, 16))
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _init_model(torch, cfg, dev, seed=0):
+    """bf16 serving weights drawn from ``seed`` on the card: (params,
+    seconds, weight bytes, peak device bytes of the draw)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import init_params
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = init_params(tf.model_specs(cfg), gen, dev,
+                         dtype=tf.serving_dtype(cfg))
+    torch.cuda.synchronize()
+    return (params, time.perf_counter() - t0,
+            sum(t.numel() * t.element_size() for t in _leaves(params)),
+            torch.cuda.max_memory_allocated())
+
+
+def phase_moe_golden(torch, np, dev) -> dict:
+    """The fixture ``tests/data/torch_moe_serve_golden`` (a float32
+    DeepSeekMoE-16B twin at full width cut to 3 layers, its parameters
+    redrawn from the fixture's seed and checked by digest; JAX's chosen
+    experts, prefill and decode logits and greedy engine tokens): the
+    port on the card through the flash kernel (float32) reproduces
+    them."""
+    from unittest import mock
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import moe
+    from repro_torch.serve import golden
+    with np.load(MOE_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    allocated = _free(torch)
+    t0 = time.perf_counter()
+    before = flash.launches
+    seen, route = [], moe.route
+
+    def recording(p, xg, cfg):
+        seen.append(route(p, xg, cfg))
+        return seen[-1]
+    with mock.patch.object(moe, "route", recording):
+        report = golden.replay(golden.MOE, fx, dev)
+    report.update(golden.routing_report(golden.MOE, fx, seen))
+    del seen
+    line = {"phase": "moe_golden", "arch": golden.MOE.arch,
+            "layers": golden.MOE.layers, "prefill_tokens": golden.MOE.prefill,
+            **report, "routing_min_gap": float(fx["routing_min_gap"]),
+            "flash_launches": flash.launches - before,
+            "allocated_before_bytes": allocated,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not (report["ok"] and report["routing_equal"]) or \
+            line["flash_launches"] == 0:
+        raise SystemExit("moe golden: the port on the card does not "
+                         "reproduce the JAX fixture through the flash "
+                         "kernel")
+    return line
+
+
+def _timed_prefills(torch, tf, params, cfg, rng, lengths):
+    """Prefill ms at each length (B = 1, a random prompt), on the host
+    clock around synchronised calls: (cold, warm) each."""
+    out = {}
+    dev = params["embed"].device
+    for n in lengths:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, n),
+                                 dtype=torch.int64, device=dev)[None]
+        ms = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tf.prefill(params, {"tokens": tokens}, cfg, SERVE_CACHE)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        out[n] = {"cold": ms[0], "warm": ms[1]}
+    return out
+
+
+def phase_moe_serve_main(torch, np, dev) -> dict:
+    """DeepSeekMoE-16B at its published widths and depth behind the
+    engine: 16 requests at t = 0 of 64 new tokens each."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import count_params
+    from repro_torch.serve import engine as serve
+    cfg = get_config("deepseek-moe-16b")
+    allocated = _free(torch)
+    params, init_s, weight_bytes, init_peak = _init_model(torch, cfg, dev)
+    rng = np.random.default_rng(0)
+    lengths = rng.choice(MOE_PROMPT_LENS, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    reqs = [serve.Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS,
+                          submitted_at=0.0) for i, p in enumerate(prompts)]
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE), device=dev)
+    kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.states))
+
+    def reset_counts():
+        flash.launches = 0
+
+    metrics, wall, prefill_ms, step_ms, peak = _drive_engine(
+        torch, eng, reqs, reset_counts)
+    launches = {"flash_attention": flash.launches}
+    bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    if bad or metrics["requests"] != SERVE_REQUESTS:
+        raise SystemExit(f"moe serve main: malformed outputs for {bad}")
+    if launches["flash_attention"] != cfg.num_layers * SERVE_REQUESTS:
+        raise SystemExit(f"moe serve main: {launches} flash launches, not "
+                         f"{cfg.num_layers} a prefill")
+    longest = int(np.argmax(lengths))
+    smi, decode_window, prefill_window = _serve_windows(
+        torch, eng, params, cfg, prompts, longest)
+    del eng
+    _free(torch)
+    prefill_timed = _timed_prefills(torch, tf, params, cfg, rng,
+                                    MOE_PREFILL_TIMED)
+    consistency = _teacher_forcing(
+        torch, np, tf, params,
+        dataclasses.replace(cfg, capacity_factor=MOE_CONSISTENCY_CF),
+        rng.integers(0, cfg.vocab_size, MOE_TF_PROMPT).astype(np.int32),
+        rng, multiple=512)
+    consistency["capacity_factor"] = MOE_CONSISTENCY_CF
+    steps = np.asarray(step_ms)
+    line = {"phase": "moe_serve_main", "arch": cfg.name,
+            "layers": cfg.num_layers, "params": count_params(
+                tf.model_specs(cfg)),
+            "weight_bytes": weight_bytes, "param_init_s": init_s,
+            "param_init_peak_device_bytes": init_peak,
+            "allocated_before_bytes": allocated,
+            "num_slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+            "kv_cache_bytes": kv_bytes,
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+            "prompt_lens": [int(n) for n in lengths],
+            "prompt_tokens": int(lengths.sum()),
+            "run_server": metrics, "wall_s": wall,
+            "prefill_ms_by_prompt_len": sorted(prefill_ms),
+            "prefill_ms_timed": prefill_timed,
+            "decode_steps": len(step_ms),
+            "decode_step_ms_median": float(np.median(steps)),
+            "decode_step_ms_p99": float(np.percentile(steps, 99)),
+            "decode_step_ms_max": float(steps.max()),
+            "peak_device_bytes": peak, "launches": launches,
+            "flash_launches_per_prefill": launches["flash_attention"]
+            / SERVE_REQUESTS,
+            "nvidia_smi_clocks_power": smi,
+            "decode_window": decode_window, "prefill_window": prefill_window,
+            "consistency": consistency}
+    emit(line)
+    del params
+    _free(torch)
+    if not consistency["within_limit"]:
+        raise SystemExit("moe serve main: decode logits disagree with "
+                         "teacher forcing at full width")
+    return line
+
+
+def phase_granite(torch, np, dev) -> dict:
+    """Granite-3.0-1B-A400M at its published widths and depth (GQA 16/8,
+    top-8 of 32, tied embeddings, vocab 49155 padded to 49664): prefill +
+    8 decode steps against teacher forcing, and one short run_server."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import count_params
+    from repro_torch.serve import engine as serve
+    cfg = get_config("granite-moe-1b-a400m")
+    allocated = _free(torch)
+    params, init_s, weight_bytes, _ = _init_model(torch, cfg, dev)
+    rng = np.random.default_rng(0)
+    consistency = _teacher_forcing(
+        torch, np, tf, params,
+        dataclasses.replace(cfg, capacity_factor=MOE_CONSISTENCY_CF),
+        rng.integers(0, cfg.vocab_size, GRANITE_TF_PROMPT).astype(np.int32),
+        rng, multiple=512)
+    consistency["capacity_factor"] = MOE_CONSISTENCY_CF
+    reqs = [serve.Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=new)
+        for i, (n, new) in enumerate(GRANITE_REQS)]
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=4, cache_len=2048), device=dev)
+    before = flash.launches
+    t0 = time.perf_counter()
+    metrics = serve.run_server(eng, reqs, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = flash.launches - before
+    ok_tokens = all(len(r.tokens) == new and
+                    all(0 <= t < cfg.vocab_size for t in r.tokens)
+                    for r, (_, new) in zip(reqs, GRANITE_REQS))
+    line = {"phase": "granite", "arch": cfg.name, "layers": cfg.num_layers,
+            "params": count_params(tf.model_specs(cfg)),
+            "weight_bytes": weight_bytes, "param_init_s": init_s,
+            "allocated_before_bytes": allocated,
+            "consistency": consistency, "run_server": metrics,
+            "wall_s": wall, "flash_launches": launched,
+            "tokens_ok": ok_tokens}
+    emit(line)
+    del eng, params
+    _free(torch)
+    if not (consistency["within_limit"] and ok_tokens) or \
+            launched != cfg.num_layers * len(GRANITE_REQS):
+        raise SystemExit("granite: decode disagrees with teacher forcing, "
+                         "malformed tokens, or flash did not run in every "
+                         "prefill")
     return line
 
 
@@ -2370,6 +2658,11 @@ def main() -> int:
     xg = phase_xlstm_golden(torch, np, dev)
     xs = phase_xlstm_serve_main(torch, np, dev)
     emit({"phase": "xlstm_phases", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    mg = phase_moe_golden(torch, np, dev)
+    moe_line = phase_moe_serve_main(torch, np, dev)
+    gr = phase_granite(torch, np, dev)
+    emit({"phase": "moe_phases", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -2462,7 +2755,11 @@ def main() -> int:
         "launches": serve_line["launches"]["flash_attention"],
         "launches_by_path": {
             "serve": serve_line["launches"]["flash_attention"],
-            "train": tm["launches"]["flash_attention"]},
+            "train": tm["launches"]["flash_attention"],
+            "moe_serve": moe_line["launches"]["flash_attention"],
+            "moe_golden_float32": mg["flash_launches"],
+            "granite": gr["flash_launches"]},
+        "moe_shape": fl["moe_shape"],
         "max_abs_err": fl["max_abs_err"],
         "max_abs_err_train": fl["max_abs_err_train"], "ms": fl["kernel_ms"],
         "plain_ms": fl["plain_ms"], "library_ms": fl["library_ms"],

@@ -6,9 +6,10 @@ blocks; a segment with ``repeats > 1`` keeps its parameters and decode
 state stacked on a leading layer axis, as the reference's scanned
 segments do, so a parameter tree crosses between the two packages by
 key.  The port builds the dense plan (``attn`` + ``dense``), the
-Griffin hybrid plan (``rglru`` ×2 + ``local_attn``) and the xLSTM plan
-(``mlstm`` ×(k−1) + ``slstm``, no MLP); the MoE plan and the encoder
-tower raise (ROADMAP Queue 1 item 11).
+Griffin hybrid plan (``rglru`` ×2 + ``local_attn``), the xLSTM plan
+(``mlstm`` ×(k−1) + ``slstm``, no MLP) and the MoE plan
+(``first_k_dense`` × (``attn``, ``dense``), then (``attn``, ``moe``));
+the encoder tower raises (ROADMAP Queue 1 item 11).
 
 The forecaster's mLSTM trunk reads ``d_model``, ``num_heads``,
 ``proj_factor`` and ``conv_width`` only.
@@ -71,8 +72,15 @@ class ArchConfig:
     tie_embeddings: bool = False
     norm_eps: float = 1e-5
 
-    # MoE (not ported: a config with experts raises in layer_plan)
+    # MoE (repro_torch/models/moe.py)
     n_experts: int = 0
+    n_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0
+    first_k_dense: int = 0
+    dense_d_ff: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
 
     # ssm / hybrid
     slstm_every: int = 0          # xLSTM: every k-th block is sLSTM
@@ -114,17 +122,31 @@ class ArchConfig:
 
     def layer_plan(self) -> List[Segment]:
         """Decoder segments: the xLSTM pattern for ``ssm``, the Griffin
-        pattern for ``hybrid``, one stacked segment of dense attention
-        blocks otherwise."""
+        pattern for ``hybrid``, the MoE pattern for a config with
+        experts, one stacked segment of dense attention blocks
+        otherwise."""
+        if self.is_encoder_decoder:
+            raise NotImplementedError(
+                f"{self.name}: the encoder-decoder layer plan is "
+                f"{NOT_PORTED}")
         if self.family == "ssm":
             return self._xlstm_plan()
         if self.family == "hybrid":
             return self._rglru_plan()
-        if self.n_experts > 0 or self.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{self.name}: the {self.family} layer plan is {NOT_PORTED}")
+        if self.n_experts > 0:
+            return self._moe_plan()
         return [Segment((BlockSpec("attn", "dense"),),
                         repeats=self.num_layers)]
+
+    def _moe_plan(self) -> List[Segment]:
+        """``first_k_dense`` dense attention blocks, then MoE blocks."""
+        segs: List[Segment] = []
+        if self.first_k_dense:
+            segs.append(Segment((BlockSpec("attn", "dense"),),
+                                repeats=self.first_k_dense))
+        segs.append(Segment((BlockSpec("attn", "moe"),),
+                            repeats=self.num_layers - self.first_k_dense))
+        return segs
 
     def _xlstm_plan(self) -> List[Segment]:
         """(slstm_every − 1) mLSTM blocks then one sLSTM block, repeated;

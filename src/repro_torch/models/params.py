@@ -22,7 +22,9 @@ function of a leaf's key path that gives its dtype (the serving form,
 :func:`numpy_params` draws the same initialisers with
 ``numpy.random.default_rng(seed)`` as float32 numpy arrays, which both
 packages read: a fixture then carries a seed and :func:`tree_digest` in
-place of the parameters themselves.
+place of the parameters themselves.  :func:`numpy_params_on` puts the
+same numbers on a device, and gives their digest, without ever holding
+the numpy tree whole.
 """
 from __future__ import annotations
 
@@ -155,14 +157,18 @@ def params_from_numpy(tree, device=None,
             dtype=_leaf_dtype(dtype, path), device=dev), tree)
 
 
-def _numpy_leaf(spec: ParamSpec, rng: np.random.Generator) -> np.ndarray:
+def _numpy_leaf(spec: ParamSpec, rng: np.random.Generator,
+                shape=None) -> np.ndarray:
+    """The leaf's draw, or its next ``shape`` values (a run of one draw
+    taken in pieces gives the same numbers)."""
+    shape = spec.shape if shape is None else shape
     if spec.init == "zeros":
-        return np.zeros(spec.shape, np.float32)
+        return np.zeros(shape, np.float32)
     if spec.init == "ones":
-        return np.ones(spec.shape, np.float32)
+        return np.ones(shape, np.float32)
     if spec.init == "normal":
         std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        return (rng.standard_normal(spec.shape) * std).astype(np.float32)
+        return (rng.standard_normal(shape) * std).astype(np.float32)
     raise ValueError(f"init {spec.init!r} has no numpy draw")
 
 
@@ -177,12 +183,45 @@ def numpy_params(specs, seed: int) -> Dict:
     return map_tree(lambda path, _: flat[path], specs)
 
 
+# Values drawn at a time by numpy_params_on (64 MB of float32).
+_DRAW_PIECE = 1 << 24
+
+
+def numpy_params_on(specs, seed: int, device=None,
+                    dtype: DType = torch.float32) -> Tuple[Dict, str]:
+    """(parameters, digest): the tensors of ``numpy_params(specs, seed)``
+    on ``device`` (``None`` is the card), each leaf in ``dtype``, and
+    their :func:`tree_digest`, drawn ``_DRAW_PIECE`` values at a time, so
+    the float32 numpy tree never exists (4 GB for 10^9 parameters)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    h = hashlib.sha256()
+    flat = {}
+    for path, spec in leaves_with_paths(specs):
+        _digest_head(h, path, spec.shape, np.dtype(np.float32))
+        leaf = torch.empty(spec.shape, dtype=_leaf_dtype(dtype, path),
+                           device=dev)
+        n = math.prod(spec.shape)
+        for lo in range(0, n, _DRAW_PIECE):
+            a = _numpy_leaf(spec, rng, (min(_DRAW_PIECE, n - lo),))
+            h.update(a.tobytes())
+            leaf.view(-1)[lo:lo + a.size] = torch.from_numpy(a)
+        flat[path] = leaf
+    return map_tree(lambda path, _: flat[path], specs), h.hexdigest()
+
+
+def _digest_head(h, path, shape, dtype) -> None:
+    """A leaf's key path, shape and dtype into the digest ``h``, before
+    its bytes."""
+    h.update(f"{path}{tuple(shape)}{dtype}".encode())
+
+
 def tree_digest(tree) -> str:
     """sha256 over every leaf's key path, shape, dtype and bytes, in
     JAX's flattening order (a tree of numpy arrays)."""
     h = hashlib.sha256()
     for path, leaf in leaves_with_paths(tree):
         a = np.ascontiguousarray(leaf)
-        h.update(f"{path}{a.shape}{a.dtype}".encode())
+        _digest_head(h, path, a.shape, a.dtype)
         h.update(a.tobytes())
     return h.hexdigest()

@@ -6,7 +6,8 @@ Three modes share one block implementation:
 
   * ``forward_train`` / ``forward_hidden`` — full-sequence teacher
     forcing, differentiable; return (logits or the final-normed hidden
-    state, aux) with aux = 0 (no MoE is ported).  With ``remat`` (the
+    state, aux), aux the sum of the MoE layers' load-balancing losses
+    (0 without experts).  With ``remat`` (the
     default) and grad enabled, each superblock runs under
     ``torch.utils.checkpoint`` (``use_reentrant=False``), as the
     reference wraps its scanned superblock in ``jax.checkpoint``: the
@@ -22,8 +23,11 @@ decode state in place, layer by layer, as the reference's write-back
 chain does (``transformer.py:447-460``), and returns the same object.
 
 Mixers ``attn``, ``local_attn``, ``rglru``, ``mlstm`` and ``slstm`` and
-the ``dense`` and ``none`` MLPs are ported (a block with no MLP has no
-``norm2``, as xLSTM's); MoE, cross attention, parallel blocks and the
+the ``dense``, ``moe`` and ``none`` MLPs are ported (a block with no MLP
+has no ``norm2``, as xLSTM's; the dense blocks of an MoE config are
+``dense_d_ff`` wide).  Prefill and decode run the MoE layer as training
+does, without its aux; at decode T = 1, so each slot is its own group
+and no choice is dropped.  Cross attention, parallel blocks and the
 modality stubs raise ``NotImplementedError`` naming ROADMAP Queue 1
 item 11.
 """
@@ -35,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED, ArchConfig, BlockSpec, Segment
-from repro_torch.models import layers, rglru, xlstm
+from repro_torch.models import layers, moe, rglru, xlstm
 from repro_torch.models.params import ParamSpec, map_tree, stack_specs
 
 VOCAB_PAD_MULTIPLE = 512
@@ -106,7 +110,7 @@ _RECURRENT = {
 def _check_block(blk: BlockSpec, cfg: ArchConfig) -> None:
     if blk.mixer not in ("attn", "local_attn", *_RECURRENT):
         raise NotImplementedError(f"mixer {blk.mixer!r} is {NOT_PORTED}")
-    if blk.mlp not in ("dense", "none"):
+    if blk.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(f"mlp {blk.mlp!r} is {NOT_PORTED}")
     if blk.cross_attn or cfg.parallel_block:
         raise NotImplementedError(f"{cfg.name}: cross attention and "
@@ -123,8 +127,11 @@ def _block_specs(blk: BlockSpec, cfg: ArchConfig) -> Dict[str, Any]:
     mixer = rec.specs(cfg) if rec else layers.attn_specs(cfg)
     specs = {"norm1": layers.norm_specs(cfg), "mixer": mixer}
     if blk.mlp == "dense":
+        ff = cfg.dense_d_ff if cfg.n_experts > 0 and cfg.dense_d_ff else None
         specs.update(norm2=layers.norm_specs(cfg),
-                     mlp=layers.mlp_specs(cfg))
+                     mlp=layers.mlp_specs(cfg, ff))
+    elif blk.mlp == "moe":
+        specs.update(norm2=layers.norm_specs(cfg), mlp=moe.moe_specs(cfg))
     return specs
 
 
@@ -160,16 +167,22 @@ def _window(blk: BlockSpec, cfg: ArchConfig) -> int:
 
 
 def _finish_block(blk: BlockSpec, p, x, mix, cfg: ArchConfig):
+    """The residual add of the mixer, then the MLP's: (x, routing), the
+    MoE layer's routing or None."""
     x = x + mix
     if blk.mlp == "none":
-        return x
-    return x + layers.apply_mlp(p["mlp"], layers.apply_norm(p["norm2"], x,
-                                                            cfg), cfg)
+        return x, None
+    h = layers.apply_norm(p["norm2"], x, cfg)
+    if blk.mlp == "moe":
+        y, r = moe.apply_moe(p["mlp"], h, cfg)
+        return x + y, r
+    return x + layers.apply_mlp(p["mlp"], h, cfg), None
 
 
 def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
                 causal: bool = True):
-    """Training forward of one block."""
+    """Training forward of one block: (x, aux), aux the MoE layer's
+    load-balancing loss or None."""
     _check_block(blk, cfg)
     h = layers.apply_norm(p["norm1"], x, cfg)
     if blk.mixer in _RECURRENT:
@@ -178,7 +191,8 @@ def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
         mix = layers.attention(p["mixer"], h, cfg, positions=positions,
                                causal=causal, window=_window(blk, cfg),
                                use_rope=cfg.use_rope)
-    return _finish_block(blk, p, x, mix, cfg)
+    x, r = _finish_block(blk, p, x, mix, cfg)
+    return x, None if r is None else moe.aux_loss(r, cfg)
 
 
 def init_block_state(blk: BlockSpec, cfg: ArchConfig, batch: int,
@@ -210,7 +224,7 @@ def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     h = layers.apply_norm(p["norm1"], x, cfg)
     if blk.mixer in _RECURRENT:
         mix, state = _RECURRENT[blk.mixer].prefill(p["mixer"], h, cfg)
-        return _finish_block(blk, p, x, mix, cfg), state
+        return _finish_block(blk, p, x, mix, cfg)[0], state
     window = _window(blk, cfg)
     q, k, v = layers._project_qkv(p["mixer"], h, cfg, positions,
                                   cfg.use_rope)
@@ -234,7 +248,7 @@ def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     state["pos"].fill_(S)
     out = layers.attention_from_qkv(q, k, v, causal=True, window=window)
     mix = layers._out_proj(out, p["mixer"]["w_o"])
-    return _finish_block(blk, p, x, mix, cfg), state
+    return _finish_block(blk, p, x, mix, cfg)[0], state
 
 
 def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
@@ -247,7 +261,7 @@ def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
         mix, state = layers.decode_attention(p["mixer"], h, cfg, state,
                                              window=_window(blk, cfg),
                                              use_rope=cfg.use_rope)
-    return _finish_block(blk, p, x, mix, cfg), state
+    return _finish_block(blk, p, x, mix, cfg)[0], state
 
 
 # --------------------------------------------------------------------------- #
@@ -268,22 +282,28 @@ def _segment_layers(seg: Segment, seg_p):
 def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
                      causal: bool = True, remat: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decoder tower over a whole sequence: (x, aux).  With ``remat``
-    and grad enabled each superblock is checkpointed."""
+    """The decoder tower over a whole sequence: (x, aux), aux summed over
+    the MoE layers in order, as the reference sums its superblocks'.
+    With ``remat`` and grad enabled each superblock is checkpointed."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_p in zip(plan, segments_p):
         def superblock(xx, layer_p, seg=seg):
+            ax = torch.zeros((), dtype=torch.float32, device=xx.device)
             for j, blk in enumerate(seg.blocks):
-                xx = apply_block(blk, layer_p[f"block{j}"], xx, cfg,
-                                 positions=positions, causal=causal)
-            return xx
+                xx, a = apply_block(blk, layer_p[f"block{j}"], xx, cfg,
+                                    positions=positions, causal=causal)
+                if a is not None:
+                    ax = ax + a
+            return xx, ax
 
         for layer_p in _segment_layers(seg, seg_p):
             if remat and torch.is_grad_enabled():
-                x = checkpoint(superblock, x, layer_p, use_reentrant=False,
-                               preserve_rng_state=False)
+                x, a = checkpoint(superblock, x, layer_p,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
-                x = superblock(x, layer_p)
+                x, a = superblock(x, layer_p)
+            aux = aux + a
     return x, aux
 
 

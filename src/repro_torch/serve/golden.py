@@ -1,16 +1,30 @@
-"""Replaying the xLSTM serve fixture
-``tests/data/torch_xlstm_serve_golden/expected.npz``: a float32 twin at
-xLSTM-125M's widths (d_model 768, 4 heads, mLSTM heads 384 wide) cut to
-8 layers (two stacked (mLSTM ×3, sLSTM) superblocks) and a vocab of 512,
-with parameters drawn by ``numpy_params(model_specs(cfg), seed)``.  The
-fixture holds the seed and the parameters' digest (not the parameters),
-JAX's logits for a 128-token prefill (two chunks) and 8 decode steps of
-2 sequences, and a JAX ``ServeEngine`` run's greedy tokens, stamps and
-metrics on a virtual clock.
+"""Replaying the serve fixtures whose parameters are drawn from a seed:
 
-``tests/test_torch_xlstm.py`` builds it with the JAX package from the
-same helpers; the CPU tests, the card tests and ``chip_smoke.py``
-replay it through :func:`replay` and compare with :data:`TOL`.
+* ``tests/data/torch_xlstm_serve_golden/expected.npz`` (:data:`XLSTM`):
+  a float32 twin at xLSTM-125M's widths (d_model 768, 4 heads, mLSTM
+  heads 384 wide) cut to 8 layers (two stacked (mLSTM ×3, sLSTM)
+  superblocks), a 128-token prefill (two chunks);
+* ``tests/data/torch_moe_serve_golden/expected.npz`` (:data:`MOE`): a
+  float32 twin at DeepSeekMoE-16B's widths (d_model 2048, 16 heads of
+  128, 64 routed experts 1408 wide, top-6, 2 shared experts, a first
+  dense layer 10944 wide) cut to 3 layers (1 dense + 2 MoE), a
+  1024-token prefill (two groups of 512 at capacity 60, so some choices
+  are dropped).
+
+Both have a vocab of :data:`VOCAB` and parameters drawn by
+``numpy_params(model_specs(cfg), seed)``.  A fixture holds the seed and
+the parameters' digest (not the parameters), JAX's logits for the
+prefill and 8 decode steps of 2 sequences, and a JAX ``ServeEngine``
+run's greedy tokens, stamps and metrics on a virtual clock; the MoE
+fixture also holds JAX's chosen experts in each MoE layer of the
+prefill and the decode steps.
+
+``tests/test_torch_xlstm.py`` and ``tests/test_torch_moe.py`` build them
+with the JAX package from these helpers; the CPU tests, the card tests
+and ``chip_smoke.py`` replay them through :func:`replay` and compare
+with :data:`TOL`.  Those callers read the port's chosen experts by
+wrapping ``moe.route`` around the replay and compare them with
+:func:`routing_report`.
 """
 from __future__ import annotations
 
@@ -22,55 +36,78 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tf
-from repro_torch.models.params import (numpy_params, params_from_numpy,
-                                       tree_digest)
+from repro_torch.models.params import numpy_params, numpy_params_on
 from repro_torch.serve import engine as serve
 
-SEED = 0
-LAYERS, VOCAB = 8, 512
-PREFILL, DECODE = 128, 8
-# The engine run: (prompt length, max_new_tokens, submitted_at) on 2 slots.
-REQUESTS = ((12, 5, 0.0), (64, 4, 0.0), (7, 6, 1.0))
-SLOTS, CACHE_LEN = 2, 256
 METRIC_KEYS = ("elapsed_s", "mean_ttft_s", "requests", "tokens",
                "tokens_per_s")
-# float32 logits against JAX's: sums over 384-wide heads and 8 layers in
-# other orders (the RecurrentGemma serve fixture's bound).
+# float32 logits against JAX's: sums over wide heads and several layers
+# in other orders (the RecurrentGemma serve fixture's bound).
 TOL = dict(atol=1e-4, rtol=1e-3)
+VOCAB = 512
 
 
-def config(cfg=None):
-    """The fixture's model: xLSTM-125M (``cfg``, the port's by default)
-    at 8 layers, vocab 512, float32."""
-    cfg = get_config("xlstm-125m") if cfg is None else cfg
-    return dataclasses.replace(cfg, num_layers=LAYERS, vocab_size=VOCAB,
-                               dtype="float32")
+@dataclasses.dataclass(frozen=True)
+class Fixture:
+    """A fixture's model (``arch`` cut to ``layers``, vocab
+    :data:`VOCAB`, float32) and runs: a ``prefill``-token prefill of 2 sequences then
+    ``decode`` steps, and an engine run of ``requests`` (prompt length,
+    max_new_tokens, submitted_at) on ``slots`` slots, both with caches
+    of ``cache_len``."""
+    arch: str
+    layers: int
+    prefill: int
+    decode: int
+    requests: Tuple[Tuple[int, int, float], ...]
+    slots: int
+    cache_len: int
+    seed: int = 0
 
 
-def parameters(seed: int = SEED) -> Dict:
+XLSTM = Fixture("xlstm-125m", layers=8, prefill=128, decode=8,
+                requests=((12, 5, 0.0), (64, 4, 0.0), (7, 6, 1.0)),
+                slots=2, cache_len=256)
+MOE = Fixture("deepseek-moe-16b", layers=3, prefill=1024, decode=8,
+              requests=((12, 5, 0.0), (512, 4, 0.0), (7, 6, 1.0)),
+              slots=2, cache_len=1040)
+
+
+def config(fixture: Fixture, cfg=None):
+    """The fixture's model, from ``cfg`` (the port's config of its arch
+    by default)."""
+    cfg = get_config(fixture.arch) if cfg is None else cfg
+    return dataclasses.replace(cfg, num_layers=fixture.layers,
+                               vocab_size=VOCAB, dtype="float32")
+
+
+def parameters(fixture: Fixture) -> Dict:
     """The fixture's parameters as float32 numpy arrays."""
-    return numpy_params(tf.model_specs(config()), seed)
+    return numpy_params(tf.model_specs(config(fixture)), fixture.seed)
 
 
-def inputs(seed: int = SEED) -> Tuple[np.ndarray, List[np.ndarray]]:
-    """The token ids: (2, 136) for prefill and decode, and the engine's
-    prompts."""
+def inputs(fixture: Fixture) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """The token ids: (2, prefill + decode) for prefill and decode, and
+    the engine's prompts."""
+    seed = fixture.seed
     tokens = np.random.default_rng(seed + 1).integers(
-        0, VOCAB, (2, PREFILL + DECODE)).astype(np.int32)
+        0, VOCAB, (2, fixture.prefill + fixture.decode)
+    ).astype(np.int32)
     rng = np.random.default_rng(seed + 2)
     prompts = [rng.integers(0, VOCAB, n).astype(np.int32)
-               for n, _, _ in REQUESTS]
+               for n, _, _ in fixture.requests]
     return tokens, prompts
 
 
-def logits(prefill: Callable, decode_step: Callable, params, cfg,
-           tokens: np.ndarray, wrap: Callable) -> List:
-    """Prefill ``PREFILL`` tokens, then ``DECODE`` steps: the logit rows,
-    through either package's ``prefill`` / ``decode_step``."""
-    lg, st = prefill(params, {"tokens": wrap(tokens[:, :PREFILL])}, cfg,
-                     CACHE_LEN)
+def logits(fixture: Fixture, prefill: Callable, decode_step: Callable,
+           params, cfg, tokens: np.ndarray, wrap: Callable) -> List:
+    """Prefill ``fixture.prefill`` tokens, then ``fixture.decode`` steps:
+    the logit rows, through either package's ``prefill`` /
+    ``decode_step``."""
+    P = fixture.prefill
+    lg, st = prefill(params, {"tokens": wrap(tokens[:, :P])}, cfg,
+                     fixture.cache_len)
     out = [lg]
-    for i in range(PREFILL, PREFILL + DECODE):
+    for i in range(P, P + fixture.decode):
         lg, st = decode_step(params, wrap(tokens[:, i:i + 1]), st, cfg)
         out.append(lg)
     return out
@@ -88,41 +125,65 @@ def virtual_clock(tick: float = 0.25):
     return clock, sleep
 
 
-def requests(module, prompts: Sequence[np.ndarray]) -> List:
+def requests(fixture: Fixture, module, prompts: Sequence[np.ndarray]
+             ) -> List:
     """The engine run's requests, as ``module.Request`` (either
     package's engine)."""
     return [module.Request(uid=i, prompt=prompts[i], max_new_tokens=new,
                            submitted_at=at)
-            for i, (_, new, at) in enumerate(REQUESTS)]
+            for i, (_, new, at) in enumerate(fixture.requests)]
 
 
-def replay(fx: Dict[str, np.ndarray], device) -> Dict:
+def routing_rows(seen: Sequence, B: int) -> np.ndarray:
+    """Recorded choices (either package's, each (B, G, Sg, K)), call
+    after call along the token axis: (B, sum of the calls' T, K) int32."""
+    return np.concatenate([np.asarray(g).reshape(B, -1, g.shape[-1])
+                           for g in seen], axis=1).astype(np.int32)
+
+
+def routing_report(fixture: Fixture, fx: Dict[str, np.ndarray],
+                   seen: Sequence) -> Dict:
+    """The port's routing in a :func:`replay` of ``fixture`` against
+    JAX's in ``fx``: ``seen`` holds every ``moe.Routing`` of the replay
+    in call order, of which the first are its prefill's and decode
+    steps' (one a MoE layer each).  Whether the chosen experts equal
+    JAX's, and how many choices capacity dropped."""
+    cfg = config(fixture)
+    run = seen[:(fixture.layers - cfg.first_k_dense) * (1 + fixture.decode)]
+    return {"routing_equal": np.array_equal(
+                routing_rows([r.gate_idx.cpu() for r in run], 2),
+                fx["routing"]),
+            "dropped_choices": sum(int((~r.keep).sum()) for r in run)}
+
+
+def replay(fixture: Fixture, fx: Dict[str, np.ndarray], device) -> Dict:
     """The port on ``device`` against the fixture ``fx``: the parameters'
     digest, the logits' largest error and worst share of :data:`TOL`
     (at most 1 where they agree), and whether the engine's tokens,
     stamps and metrics equal JAX's."""
-    tree = parameters(int(fx["seed"]))
-    digest_ok = tree_digest(tree) == str(fx["params_digest"])
-    cfg = config()
-    params = params_from_numpy(tree, device, dtype=tf.serving_dtype(cfg))
-    del tree
-    tokens = fx["tokens"]
-    got = logits(tf.prefill, tf.decode_step, params, cfg, tokens,
-                 lambda a: torch.from_numpy(a).long().to(device))
+    cfg = config(fixture)
+    params, digest = numpy_params_on(tf.model_specs(cfg), int(fx["seed"]),
+                                     device, dtype=tf.serving_dtype(cfg))
+    digest_ok = digest == str(fx["params_digest"])
+    got = logits(fixture, tf.prefill, tf.decode_step, params, cfg,
+                 fx["tokens"], lambda a: torch.from_numpy(a).long().to(device))
     errs, shares = [], []
     for g, w in zip(got, [fx["prefill_logits"], *fx["decode_logits"]]):
         g = g.float().cpu().numpy()
         errs.append(float(np.abs(g - w).max()))
         shares.append(float((np.abs(g - w)
                              / (TOL["atol"] + TOL["rtol"] * np.abs(w))).max()))
-    splits = np.cumsum([n for n, _, _ in REQUESTS])[:-1]
+    del got
+    splits = np.cumsum([n for n, _, _ in fixture.requests])[:-1]
     prompts = np.split(fx["engine_prompts"], splits)
     clock, sleep = virtual_clock()
     eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
-        num_slots=SLOTS, cache_len=CACHE_LEN), clock=clock, device=device)
-    reqs = requests(serve, prompts)
+        num_slots=fixture.slots, cache_len=fixture.cache_len), clock=clock,
+        device=device)
+    reqs = requests(fixture, serve, prompts)
     metrics = serve.run_server(eng, reqs, log=lambda s: None, clock=clock,
                                sleep=sleep)
+    del eng, params
     tokens_equal = all(r.tokens == [int(t) for t in want if t >= 0]
                        for r, want in zip(reqs, fx["engine_tokens"]))
     stamps_equal = np.array_equal(np.asarray(

@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels, the lane engine, the
-forecaster, the RecurrentGemma and xLSTM serving paths and the training
-path on CUDA.
+forecaster, the RecurrentGemma, xLSTM and MoE serving paths and the
+training path on CUDA.
 
 Every test here is marked ``gpu`` and skips itself without a CUDA card
 (the kernels have no CPU mode).  On the card::
@@ -579,6 +579,8 @@ FLASH_CASES = (
     (1, 2, 1, 50, 90, 32, False, 20, "bfloat16"),
     (1, 2, 1, 70, 70, 33, True, 0, "bfloat16"),
     (1, 3, 1, 1, 1, 64, False, 0, "bfloat16"),
+    (1, 16, 16, 1536, 1536, 128, True, 0, "bfloat16"),
+    (1, 16, 8, 1024, 1024, 64, True, 0, "bfloat16"),
 )
 # tests/test_kernels.py's tolerances for the Pallas kernel against its
 # oracle: float32 sums in another order, bfloat16 outputs rounded.
@@ -775,7 +777,7 @@ def test_xlstm_golden_fixture_on_cuda(cuda):
     block = lambda: (mlstm.launches - mlstm.row_launches  # noqa: E731
                      - mlstm.parallel_launches)
     before = block()
-    report = golden.replay(fx, cuda)
+    report = golden.replay(golden.XLSTM, fx, cuda)
     assert report["ok"], report
     assert block() > before
 
@@ -882,3 +884,102 @@ def test_trainer_and_forecaster_train_on_cuda(cuda, tmp_path):
     assert res.params["w_in"].device.type == "cuda"
     assert mlstm.row_launches - before == 11
     assert np.isfinite(res.losses).all() and np.isfinite(res.val_mse)
+
+
+# The MoE layer on the card against the CPU plain path (float32: the same
+# arithmetic, cuBLAS and the CPU sum in other orders): (arch, B, T,
+# capacity_factor) at decode (T = 1), one group, two groups with
+# overflow forced.
+MOE_CASES = (("deepseek-moe-16b", 8, 1, 1.25),
+             ("deepseek-moe-16b", 2, 100, 1.25),
+             ("deepseek-moe-16b", 2, 1024, 0.5),
+             ("granite-moe-1b-a400m", 1, 1024, 1.25))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", MOE_CASES)
+def test_apply_moe_on_cuda_matches_cpu(cuda, case):
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    from repro_torch.models.params import numpy_params, params_from_numpy
+    name, B, T, cf = case
+    cfg = dataclasses.replace(get_config(name, tiny=True), dtype="float32",
+                              capacity_factor=cf)
+    tree = numpy_params(moe.moe_specs(cfg), 0)
+    x = np.random.default_rng(1).standard_normal(
+        (B, T, cfg.d_model)).astype(np.float32)
+    got = [moe.apply_moe(params_from_numpy(tree, dev),
+                         torch.from_numpy(x).to(dev), cfg)
+           for dev in (cuda, "cpu")]
+    (gc, rc), (wc, rw) = got
+    assert torch.equal(rc.gate_idx.cpu(), rw.gate_idx)
+    assert torch.equal(rc.keep.cpu(), rw.keep)
+    torch.testing.assert_close(gc.cpu(), wc, atol=1e-5, rtol=0)
+    torch.testing.assert_close(moe.aux_loss(rc, cfg).cpu(),
+                               moe.aux_loss(rw, cfg), atol=1e-5, rtol=0)
+
+
+MOE_GOLDEN = Path(__file__).resolve().parent / "data" / \
+    "torch_moe_serve_golden" / "expected.npz"
+
+
+@pytest.mark.gpu
+def test_moe_golden_fixture_on_cuda(cuda, monkeypatch):
+    """The float32 DeepSeekMoE-16B twin of
+    ``tests/data/torch_moe_serve_golden`` (full width, 3 layers) on the
+    card, through the flash kernel: JAX's chosen experts exactly, its
+    logits within ``golden.TOL``, its greedy engine tokens, stamps and
+    metrics exactly (tests/test_torch_moe.py makes the fixture)."""
+    from repro_torch.models import moe
+    from repro_torch.serve import golden
+    with np.load(MOE_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    seen, route = [], moe.route
+
+    def recording(p, xg, cfg):
+        seen.append(route(p, xg, cfg))
+        return seen[-1]
+    monkeypatch.setattr(moe, "route", recording)
+    before = flash.launches
+    report = golden.replay(golden.MOE, fx, cuda)
+    report.update(golden.routing_report(golden.MOE, fx, seen))
+    assert report["ok"] and report["routing_equal"], report
+    assert report["dropped_choices"] > 0
+    assert flash.launches > before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["deepseek-moe-16b", "granite-moe-1b-a400m"])
+def test_moe_tiny_bf16_serves_on_cuda(cuda, name):
+    """The bfloat16 twins on the card: prefill + 8 decode steps equal
+    teacher forcing at a capacity nothing overflows (within 0.1 of the
+    largest logit: bfloat16 in another order), and the engine serves
+    through the flash kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import init_params
+    from repro_torch.serve import engine as serve
+    cfg = dataclasses.replace(get_config(name, tiny=True),
+                              capacity_factor=8.0)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    params = init_params(tf.model_specs(cfg), g, cuda,
+                         dtype=tf.serving_dtype(cfg))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 1024), device=cuda,
+                           generator=g)
+    full, _ = tf.forward_train(params, {"tokens": tokens}, cfg)
+    lg, st = tf.prefill(params, {"tokens": tokens[:, :512]}, cfg, 600)
+    rows = [lg]
+    for i in range(512, 519):
+        lg, st = tf.decode_step(params, tokens[:, i:i + 1], st, cfg)
+        rows.append(lg)
+    want = full[:, 511:519].float()
+    err = (torch.stack(rows, 1).float() - want).abs().max()
+    assert float(err) <= 0.1 * float(want.abs().max())
+    before = flash.launches
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=2, cache_len=64))
+    reqs = [serve.Request(uid=i, prompt=np.arange(n) % cfg.vocab_size,
+                          max_new_tokens=4) for i, n in enumerate((5, 33))]
+    metrics = serve.run_server(eng, reqs, log=lambda s: None)
+    assert metrics["tokens"] == 8
+    assert flash.launches - before == 2 * cfg.num_layers

@@ -395,9 +395,10 @@ def test_entry_points_default_to_the_card_and_unported_raise():
         with pytest.raises(RuntimeError, match="CUDA"):
             port_engine.ServeEngine(cfg, params, port_engine.EngineConfig())
     with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("deepseek-7b")
+        get_config("whisper-medium")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataclasses.replace(cfg, family="moe", n_experts=4).layer_plan()
+        dataclasses.replace(cfg, family="audio",
+                            is_encoder_decoder=True).layer_plan()
 
 
 if __name__ == "__main__":

@@ -127,7 +127,8 @@ def test_plan_without_slstm_and_unported_plans_raise():
     (seg,) = cfg.layer_plan()
     assert seg.repeats == 6 and seg.blocks == (BlockSpec("mlstm", "none"),)
     with pytest.raises(NotImplementedError, match="item 11"):
-        dataclasses.replace(cfg, family="moe", n_experts=4).layer_plan()
+        dataclasses.replace(cfg, family="audio",
+                            is_encoder_decoder=True).layer_plan()
     with pytest.raises(NotImplementedError, match="item 11"):
         dataclasses.replace(cfg, family="dense",
                             is_encoder_decoder=True).layer_plan()
@@ -331,9 +332,9 @@ def test_block_prefill_and_decode_states_match_jax(mixer):
     for key in jst:
         assert tuple(tst[key].shape) == jst[key].shape, key
         _close(tst[key], jst[key], CELL_TOL)
-    train = port_tf.apply_block(blk, p, torch.from_numpy(x[:, :T]), cfg,
-                                positions=torch.from_numpy(pos))
-    assert torch.equal(train, to)
+    train, aux = port_tf.apply_block(blk, p, torch.from_numpy(x[:, :T]),
+                                     cfg, positions=torch.from_numpy(pos))
+    assert torch.equal(train, to) and aux is None
     for i in range(T, T + 3):
         jo, jst = ref_tf.apply_block_decode(ref_blk, tree,
                                             jnp.asarray(x[:, i:i + 1]),
@@ -559,20 +560,21 @@ def test_serve_cli_needs_a_card_without_device(monkeypatch):
 def build_fixture() -> dict:
     """The fixture's arrays, computed by the JAX package on the CPU from
     the parameters and inputs of ``repro_torch.serve.golden``."""
-    ref_cfg = golden.config(ref_get_config(NAME))
-    tree = golden.parameters()
-    tokens, prompts = golden.inputs()
-    lg, *decode = golden.logits(ref_tf.prefill, ref_tf.decode_step, tree,
-                                ref_cfg, tokens, jnp.asarray)
+    fixture = golden.XLSTM
+    ref_cfg = golden.config(fixture, ref_get_config(NAME))
+    tree = golden.parameters(fixture)
+    tokens, prompts = golden.inputs(fixture)
+    lg, *decode = golden.logits(fixture, ref_tf.prefill, ref_tf.decode_step,
+                                tree, ref_cfg, tokens, jnp.asarray)
     clock, sleep = golden.virtual_clock()
     eng = ref_engine.ServeEngine(ref_cfg, tree, ref_engine.EngineConfig(
-        num_slots=golden.SLOTS, cache_len=golden.CACHE_LEN), clock=clock)
-    reqs = golden.requests(ref_engine, prompts)
+        num_slots=fixture.slots, cache_len=fixture.cache_len), clock=clock)
+    reqs = golden.requests(fixture, ref_engine, prompts)
     metrics = ref_engine.run_server(eng, reqs, log=lambda s: None,
                                     clock=clock, sleep=sleep)
     width = max(len(r.tokens) for r in reqs)
     return {
-        "seed": np.asarray(golden.SEED),
+        "seed": np.asarray(fixture.seed),
         "params_digest": np.asarray(port_params.tree_digest(tree)),
         "tokens": tokens, "prefill_logits": np.asarray(lg),
         "decode_logits": np.stack([np.asarray(d) for d in decode]),
@@ -609,7 +611,7 @@ def test_fixture_matches_jax_reference(committed):
 
 
 def test_port_reproduces_fixture_on_cpu(committed):
-    report = golden.replay(committed, "cpu")
+    report = golden.replay(golden.XLSTM, committed, "cpu")
     assert report["digest_ok"]
     assert report["worst_share_of_tol"] <= 1.0, report
     assert report["engine_tokens_equal"] and report["engine_stamps_equal"]
