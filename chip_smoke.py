@@ -63,12 +63,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    padded hd), at the serving shape (B 1, 16 query heads, 1 kv head,
    T 3072, hd 256, window 2048, bfloat16), at the MoE cells' shapes
    (DeepSeekMoE-16B: 16 heads of 128, MHA, causal, T 3072; Granite:
-   GQA 16/8 at hd 64, T 1024) and at the training shape (B 2, T 4096);
-   device times at T 3072 and 1674 of the serving shape and at
-   DeepSeekMoE's shape of the bf16 kernel, the float32 kernel, the
-   plain version and ``scaled_dot_product_attention`` with the same
-   mask as a yardstick, each with its TFLOP/s and share of the bound;
-   the kernel's registers and spills from the ptxas log;
+   GQA 16/8 at hd 64, T 1024), at the dense cells' shapes (Command-R-35B:
+   GQA 64/8 at hd 128, causal; Qwen1.5-32B padded to 48 heads, MHA; each
+   at T 512 and 3072) and at the training shape (B 2, T 4096); device
+   times at T 3072 and 1674 of the serving shape and at DeepSeekMoE's and
+   Command-R's shapes of the bf16 kernel, the float32 kernel, the plain
+   version and ``scaled_dot_product_attention`` with the same mask as a
+   yardstick, each with its TFLOP/s and share of the bound; the kernel's
+   registers and spills from the ptxas log;
 10. rglru  — the RG-LRU scan kernels against their plain version on
    edge shapes of both (the chunked kernel up to 24 MB of input, the ring
    kernel above), at the serving shape (B 1, T 3072, R 4096, float32
@@ -160,7 +162,37 @@ Phases, each printing one JSON line; any failure exits non-zero:
    consistency test);
 21. granite — full-width Granite-3.0-1B-A400M (GQA 16/8, top-8 of 32,
    tied embeddings): prefill + 8 decode steps against teacher forcing
-   at capacity factor 8, and one short ``run_server``.
+   at capacity factor 8, and one short ``run_server``;
+22. dense golden — the fixture ``tests/data/torch_dense_serve_golden``
+   (a float32 Command-R-35B twin at full width cut to 2 layers,
+   parameters redrawn from the fixture's seed and checked by digest;
+   JAX's logits of a 512-token prefill and 8 decode steps, and its greedy
+   engine tokens): the port on the card reproduces them
+   (``repro_torch.serve.golden.replay``), flash launched in every
+   prefill;
+23. command-r serve main — Command-R-35B at its published widths and
+   full depth (40 parallel blocks, 30.28 G parameters drawn on the card
+   in bfloat16 from a seeded CUDA generator, a leaf above 2^30 values in
+   pieces) behind ``ServeEngine(num_slots=8, cache_len=4096)``, greedy,
+   phase 12's burst (16 requests at t = 0, prompts of 256–3072 tokens, 64
+   new tokens each): what phase 20 reports (tokens/s, mean TTFT, prefill
+   ms in the run and timed at 512–3072 tokens, decode step ms, weight
+   and KV-cache bytes, the serving peak and the peak while drawing, which
+   must stay below the card's memory, profiled decode and prefill
+   windows, 40 flash launches a prefill) and decode against teacher
+   forcing on a 3072-token prompt;
+24. qwen check — Qwen1.5-32B at full width (40 heads of 128 padded to
+   48 in prefill, QKV bias) cut to 8 of its 64 layers: on float32
+   activations over the same weights, decode from an unquantised cache
+   and from the int8 cache after one prefill, the int8 decode held to
+   the unquantised one within what that cache moved by half an int8
+   step on every element does, and two planted faults in the int8 cache
+   held to exceed that limit; in bf16, decode from each cache against
+   teacher forcing (the int8 one allowed that limit more); the padded
+   prefill ``==`` the unpadded one on the real heads, flash timed at 48
+   and at 40 heads, and a short ``run_server`` on the int8 cache (flash
+   launched once a layer a prefill, counted from 0 just before it) with
+   both layouts' KV-cache bytes.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -1313,6 +1345,12 @@ FLASH_TRAIN_CASE = (2, 16, 1, 4096, 4096, 256, True, 2048, "bfloat16")
 # the serving shape.  Granite-3.0-1B-A400M's: GQA 16/8 at hd 64.
 FLASH_MOE_CASE = (1, 16, 16, 3072, 3072, 128, True, 0, "bfloat16")
 FLASH_GRANITE_CASE = (1, 16, 8, 1024, 1024, 64, True, 0, "bfloat16")
+# Command-R-35B's attention at its serve cell's longest prompt (phase
+# 23): GQA 64/8 at hd 128, causal, no window; timed in phase 9.  Qwen1.5-
+# 32B's prefill after padding 40 heads to 48 (phase 24, which times it
+# beside the unpadded 40).  Each also at T 512 (checked first).
+FLASH_COMMAND_R_CASE = (1, 64, 8, 3072, 3072, 128, True, 0, "bfloat16")
+FLASH_QWEN_CASE = (1, 48, 48, 3072, 3072, 128, True, 0, "bfloat16")
 
 # (B, Hq, Hkv, T, S, hd, causal, window, dtype): the serving shape first,
 # then tests/test_kernels.py's sweep (MHA, GQA, MQA with hd 256), a
@@ -1348,6 +1386,10 @@ FLASH_CASES = (
     (1, 3, 1, 1, 1, 64, False, 0, "bfloat16"),
     FLASH_MOE_CASE,
     FLASH_GRANITE_CASE,
+    (1, 64, 8, 512, 512, 128, True, 0, "bfloat16"),
+    (1, 48, 48, 512, 512, 128, True, 0, "bfloat16"),
+    FLASH_COMMAND_R_CASE,
+    FLASH_QWEN_CASE,
     FLASH_TRAIN_CASE,
 )
 # Serving-path lengths timed in phase 9: the longest prompt's bucket and
@@ -1436,6 +1478,23 @@ def _flash_timed(torch, np, flash, dev, shape) -> dict:
         "bound_by": bound_by}
 
 
+def _flash_shape_line(case, timed, results) -> dict:
+    """A timed shape's numbers for the phase's line and the kernels
+    line."""
+    return {"shape": list(case[:6]), "causal": case[6], "window": case[7],
+            "kernel_ms": timed["ms"]["kernel"],
+            "kernel_f32_ms": timed["ms"]["kernel_f32"],
+            "plain_ms": timed["ms"]["plain"],
+            "library_ms": timed["ms"]["library"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "flops": timed["flops"], "bytes": timed["bytes"],
+            "visible_pairs_per_head": timed["visible_pairs_per_head"],
+            "tflops": timed["tflops"],
+            "share_of_bound": timed["share_of_bound"],
+            "max_abs_err": results[_flash_name(case)]["max_abs_err"]
+            if results else None}
+
+
 def phase_flash(torch, np, dev) -> dict:
     from repro_torch import _build
     from repro_torch.kernels import flash_attention as flash
@@ -1463,6 +1522,7 @@ def phase_flash(torch, np, dev) -> dict:
                                                     causal, window))
             for T in FLASH_TIMED_T}
     moe = _flash_timed(torch, np, flash, dev, FLASH_MOE_CASE[:8])
+    command_r = _flash_timed(torch, np, flash, dev, FLASH_COMMAND_R_CASE[:8])
     ptxas = _ptxas_by_kernel(
         _build.build_all(["flash_attention"])["flash_attention"]["log"])
     serve = by_t[FLASH_TIMED_T[0]]
@@ -1480,18 +1540,9 @@ def phase_flash(torch, np, dev) -> dict:
             "bound_ms": serve["bound_ms"], "bound_by": serve["bound_by"],
             "kernel_tflops": serve["tflops"]["kernel"],
             "by_T": by_t, "ptxas": ptxas,
-            "moe_shape": {"shape": list(FLASH_MOE_CASE[:6]),
-                          "causal": True, "window": 0,
-                          "kernel_ms": moe["ms"]["kernel"],
-                          "kernel_f32_ms": moe["ms"]["kernel_f32"],
-                          "plain_ms": moe["ms"]["plain"],
-                          "library_ms": moe["ms"]["library"],
-                          "bound_ms": moe["bound_ms"],
-                          "bound_by": moe["bound_by"],
-                          "flops": moe["flops"], "tflops": moe["tflops"],
-                          "share_of_bound": moe["share_of_bound"],
-                          "max_abs_err": results[_flash_name(
-                              FLASH_MOE_CASE)]["max_abs_err"]},
+            "moe_shape": _flash_shape_line(FLASH_MOE_CASE, moe, results),
+            "command_r_shape": _flash_shape_line(
+                FLASH_COMMAND_R_CASE, command_r, results),
             # the path's call (the serving shape), then the worst by dtype
             "max_abs_err": next(iter(results.values()))["max_abs_err"],
             "max_abs_err_train": list(results.values())[-1]["max_abs_err"],
@@ -1758,12 +1809,12 @@ def _drive_engine(torch, eng, reqs, reset_counts):
 
 
 def _teacher_forcing(torch, np, tf, params, cfg, prompt, rng, K=8,
-                     multiple=1):
+                     multiple=1, rel=SERVE_CONSISTENCY_REL, extra=0.0):
     """Prefill ``prompt``, decode K - 1 tokens, and hold the K logit rows
     to ``forward_train`` over the prompt and the decoded tokens, padded
     with more random tokens to a length that is a multiple of
     ``multiple`` (the mLSTM cell's chunk): the largest error against
-    SERVE_CONSISTENCY_REL of the largest logit, and argmax agreement."""
+    ``rel`` of the largest logit plus ``extra``, and argmax agreement."""
     dev = params["embed"].device
     P = len(prompt)
     n_full = -(-(P + K - 1) // multiple) * multiple
@@ -1778,17 +1829,25 @@ def _teacher_forcing(torch, np, tf, params, cfg, prompt, rng, K=8,
     del st
     full, _ = tf.forward_train(params, {"tokens": seq[:, :n_full]}, cfg)
     want = full[0, P - 1:P + K - 1].float()
-    got = torch.cat(dec).float()
     del full
+    return _against_teacher(cfg, torch.cat(dec).float(), want, P, n_full,
+                            rel * float(want.abs().max()) + extra)
+
+
+def _against_teacher(cfg, got, want, P, n_full, limit) -> dict:
+    """K decoded logit rows (the prefill's, then K - 1 decode steps')
+    against forward_train's rows at the same positions: the largest
+    error against ``limit``, and argmax agreement."""
+    K = got.shape[0]
     scale = float(want.abs().max())
     err = float((got - want).abs().max())
     argmax_agree = int((got[:, :cfg.vocab_size].argmax(-1)
                         == want[:, :cfg.vocab_size].argmax(-1)).sum())
     return {"prompt_tokens": P, "decode_steps": K - 1,
             "teacher_forcing_tokens": n_full, "max_abs_err": err,
-            "max_abs_logit": scale, "limit": SERVE_CONSISTENCY_REL * scale,
-            "argmax_agree": argmax_agree, "of": K,
-            "within_limit": err <= SERVE_CONSISTENCY_REL * scale}
+            "max_abs_logit": scale, "limit_rel": limit / scale,
+            "limit": limit, "argmax_agree": argmax_agree, "of": K,
+            "within_limit": err <= limit}
 
 
 
@@ -2155,6 +2214,376 @@ def phase_granite(torch, np, dev) -> dict:
         raise SystemExit("granite: decode disagrees with teacher forcing, "
                          "malformed tokens, or flash did not run in every "
                          "prefill")
+    return line
+
+
+DENSE_GOLDEN = ROOT / "tests" / "data" / "torch_dense_serve_golden" / \
+    "expected.npz"
+COMMAND_R_PREFILL_TIMED = (512, 1024, 2048, 3072)
+COMMAND_R_TF_PROMPT = 3072
+# Qwen1.5-32B at full width cut to 8 of its 64 layers (5.76 G parameters,
+# 11.5 GB of bf16 weights); its full depth (70.39 GB) leaves no room on
+# one card for a useful cache.
+QWEN_LAYERS = 8
+QWEN_TF_PROMPT = 3072
+QWEN_EQUAL_PROMPT = 3072
+QWEN_REQS = ((64, 16), (512, 16), (1024, 16), (3072, 16))
+# The int8 cache holds each k, v element within half a quantisation step
+# of the value it replaces: 1/254 of the largest |value| of its row (the
+# float16 scale adds at most 2^-11 of that).
+KV_QUANT_HALF_STEP = 1 / 254
+
+
+def phase_dense_golden(torch, np, dev) -> dict:
+    """The fixture ``tests/data/torch_dense_serve_golden`` (a float32
+    Command-R-35B twin at full width cut to 2 layers, its parameters
+    redrawn from the fixture's seed and checked by digest; JAX's logits of
+    a 512-token prefill and 8 decode steps, and its greedy engine tokens):
+    the port on the card through the flash kernel (float32, GQA 64/8)
+    reproduces them, flash launched in every prefill."""
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.serve import golden
+    with np.load(DENSE_GOLDEN, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    fixture = golden.DENSE
+    allocated = _free(torch)
+    t0 = time.perf_counter()
+    before = flash.launches
+    report = golden.replay(fixture, fx, dev)
+    launched = flash.launches - before
+    prefills = 1 + len(fixture.requests)
+    line = {"phase": "dense_golden", "arch": fixture.arch,
+            "layers": fixture.layers, "prefill_tokens": fixture.prefill,
+            **report, "flash_launches": launched,
+            "flash_launches_expected": fixture.layers * prefills,
+            "allocated_before_bytes": allocated,
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    if not report["ok"] or launched != fixture.layers * prefills:
+        raise SystemExit("dense golden: the port on the card does not "
+                         "reproduce the JAX fixture, or flash did not run "
+                         "in every prefill")
+    return line
+
+
+def _check_init_peak(torch, name, init_peak) -> int:
+    total = torch.cuda.get_device_properties(0).total_memory
+    if init_peak >= total:
+        raise SystemExit(f"{name}: drawing the weights peaked at "
+                         f"{init_peak} B, not below the card's {total} B")
+    return total
+
+
+def phase_command_r_serve_main(torch, np, dev) -> dict:
+    """Command-R-35B at its published widths and full depth (40 layers,
+    parallel blocks, GQA 64/8) behind the engine: 16 requests at t = 0 of
+    256-3072 tokens and 64 new tokens each, the RecurrentGemma cell's
+    burst."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import count_params
+    from repro_torch.serve import engine as serve
+    cfg = get_config("command-r-35b")
+    allocated = _free(torch)
+    params, init_s, weight_bytes, init_peak = _init_model(torch, cfg, dev)
+    total = _check_init_peak(torch, "command-r serve main", init_peak)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(256, 3073, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    reqs = [serve.Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS,
+                          submitted_at=0.0) for i, p in enumerate(prompts)]
+    eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
+        num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE), device=dev)
+    kv_bytes = sum(t.numel() * t.element_size() for t in _leaves(eng.states))
+
+    def reset_counts():
+        flash.launches = 0
+
+    metrics, wall, prefill_ms, step_ms, peak = _drive_engine(
+        torch, eng, reqs, reset_counts)
+    launches = {"flash_attention": flash.launches}
+    bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
+    if bad or metrics["requests"] != SERVE_REQUESTS:
+        raise SystemExit(f"command-r serve main: malformed outputs for {bad}")
+    if launches["flash_attention"] != cfg.num_layers * SERVE_REQUESTS:
+        raise SystemExit(f"command-r serve main: {launches} flash launches, "
+                         f"not {cfg.num_layers} a prefill")
+    longest = int(np.argmax(lengths))
+    smi, decode_window, prefill_window = _serve_windows(
+        torch, eng, params, cfg, prompts, longest)
+    del eng
+    _free(torch)
+    prefill_timed = _timed_prefills(torch, tf, params, cfg, rng,
+                                    COMMAND_R_PREFILL_TIMED)
+    consistency = _teacher_forcing(
+        torch, np, tf, params, cfg,
+        rng.integers(0, cfg.vocab_size, COMMAND_R_TF_PROMPT).astype(
+            np.int32), rng)
+    steps = np.asarray(step_ms)
+    line = {"phase": "command_r_serve_main", "arch": cfg.name,
+            "layers": cfg.num_layers, "params": count_params(
+                tf.model_specs(cfg)),
+            "weight_bytes": weight_bytes, "param_init_s": init_s,
+            "param_init_peak_device_bytes": init_peak,
+            "device_total_bytes": total,
+            "allocated_before_bytes": allocated,
+            "num_slots": SERVE_SLOTS, "cache_len": SERVE_CACHE,
+            "kv_cache_bytes": kv_bytes,
+            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+            "prompt_lens": [int(n) for n in lengths],
+            "prompt_tokens": int(lengths.sum()),
+            "run_server": metrics, "wall_s": wall,
+            "prefill_ms_by_prompt_len": sorted(prefill_ms),
+            "prefill_ms_timed": prefill_timed,
+            "decode_steps": len(step_ms),
+            "decode_step_ms_median": float(np.median(steps)),
+            "decode_step_ms_p99": float(np.percentile(steps, 99)),
+            "decode_step_ms_max": float(steps.max()),
+            "peak_device_bytes": peak, "launches": launches,
+            "flash_launches_per_prefill": launches["flash_attention"]
+            / SERVE_REQUESTS,
+            "nvidia_smi_clocks_power": smi,
+            "decode_window": decode_window, "prefill_window": prefill_window,
+            "consistency": consistency}
+    emit(line)
+    del params
+    _free(torch)
+    if not consistency["within_limit"]:
+        raise SystemExit("command-r serve main: decode logits disagree with "
+                         "teacher forcing at full width")
+    return line
+
+
+def _padded_equals_unpadded(torch, np, tf, layers, params, cfg, prompt):
+    """Qwen's prefill with its heads padded 40 -> 48 against the same
+    prefill unpadded: the first layer's attention core on its real heads,
+    the last-position logits and every cache, each ``torch.equal``."""
+    import dataclasses
+    unpadded = dataclasses.replace(cfg, pad_heads_to=0)
+    dev = params["embed"].device
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)[None]
+    seg = params["segments"][0]["block0"]
+    layer0 = {k: v[0] for k, v in seg["mixer"].items()}
+    x = params["embed"][tokens].to(getattr(torch, cfg.dtype))
+    h = layers.apply_norm({k: v[0] for k, v in seg["norm1"].items()}, x, cfg)
+    pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                       device=dev)[None]
+    q, k, v = layers._project_qkv(layer0, h, cfg, pos, True)
+    core = [layers.attention_from_qkv(q, k, v, pad_heads_to=n)
+            for n in (cfg.pad_heads_to, 0)]
+    runs = [tf.prefill(params, {"tokens": tokens}, c, SERVE_CACHE)
+            for c in (cfg, unpadded)]
+    (lp, sp), (lu, su) = runs
+    states_equal = all(torch.equal(a, b) for a, b in zip(_leaves(sp),
+                                                         _leaves(su)))
+    return {"prompt_tokens": len(prompt),
+            "core_real_heads_equal": torch.equal(*core),
+            "core_max_abs_err": float((core[0].float()
+                                       - core[1].float()).abs().max()),
+            "logits_equal": torch.equal(lp, lu),
+            "states_equal": states_equal}
+
+
+def _caches(states):
+    """The attention caches (dicts holding "k") of a decode state tree."""
+    return [st for seg in states for st in seg.values() if "k" in st]
+
+
+def _half_step_off(torch, states, P, gen) -> None:
+    """Move every written k, v element (positions < P) of an unquantised
+    cache by KV_QUANT_HALF_STEP of its row's largest |value|, a random
+    sign each."""
+    for st in _caches(states):
+        for name in ("k", "v"):
+            x = st[name][..., :P, :].float()
+            amax = x.abs().amax(-1, keepdim=True)
+            sign = torch.randint(0, 2, x.shape, generator=gen,
+                                 device=x.device, dtype=torch.float32)
+            x += (2 * sign - 1) * amax * KV_QUANT_HALF_STEP
+            st[name][..., :P, :] = x.to(st[name].dtype)
+
+
+def _kv_quant_consistency(torch, np, tf, layers, params, cfg, prompt, rng,
+                          K=8) -> dict:
+    """Prefill ``prompt`` into an unquantised cache and, with
+    ``kv_quant``, into an int8 one, and decode the same K - 1 tokens from
+    each.  Run on float32 activations, so that no rounding of the
+    residual stream blurs the comparison (in bfloat16 a perturbation
+    this small flips roundings, and the two errors meet at that floor).
+
+    The int8 decode's largest logit error against the unquantised decode
+    is the quantisation's alone.  Its limit is the error of the
+    unquantised cache with every written element moved by half an int8
+    step (:func:`_half_step_off`): the quantiser's largest error on
+    every element, where its own errors spread evenly below it (RMS
+    1/sqrt(3) of that).  Two planted faults in the int8 cache,
+    ``v_scale`` zeroed and ``k_scale`` 1 (a scale left unapplied), go
+    through the same comparison and must exceed the limit.  The int8
+    prefill must write ``quantize_kv`` of the unquantised cache, its
+    logits ``==``."""
+    import dataclasses
+    from repro_torch.models.params import map_tree
+    quant = dataclasses.replace(cfg, kv_quant=True)
+    dev = params["embed"].device
+    P = len(prompt)
+    seq = torch.as_tensor(np.concatenate([prompt, rng.integers(
+        0, cfg.vocab_size, K - 1).astype(np.int32)]), dtype=torch.int64,
+        device=dev)[None]
+    first, plain = tf.prefill(params, {"tokens": seq[:, :P]}, cfg,
+                              SERVE_CACHE)
+    first_q, q8 = tf.prefill(params, {"tokens": seq[:, :P]}, quant,
+                             SERVE_CACHE)
+    prefill_equal = torch.equal(first, first_q)
+    for b, c in zip(_caches(plain), _caches(q8)):
+        for name in ("k", "v"):
+            payload, scale = layers.quantize_kv(b[name][..., :P, :])
+            prefill_equal &= (torch.equal(payload, c[name][..., :P, :]) and
+                              torch.equal(scale, c[f"{name}_scale"][..., :P]))
+
+    def clone(states):
+        return map_tree(lambda _, t: t.clone(), states)
+
+    half = clone(plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    _half_step_off(torch, half, P, gen)
+    faults = {"v_scale_zeroed": ("v_scale", 0.0),
+              "k_scale_unapplied": ("k_scale", 1.0)}
+    faulty = {}
+    for fault, (name, value) in faults.items():
+        faulty[fault] = clone(q8)
+        for c in _caches(faulty[fault]):
+            c[name][..., :P] = value
+
+    def decode(states, c):
+        rows = []
+        for i in range(P, P + K - 1):
+            lg, states = tf.decode_step(params, seq[:, i:i + 1], states, c)
+            rows.append(lg)
+        return torch.cat(rows).float()
+
+    runs = {"unquantised": decode(plain, cfg), "int8": decode(q8, quant),
+            "half_step": decode(half, cfg),
+            **{f: decode(st, quant) for f, st in faulty.items()}}
+    del plain, q8, half, faulty
+    diff = {name: rows - runs["unquantised"] for name, rows in runs.items()}
+    err = {name: float(d.abs().max()) for name, d in diff.items()}
+    rms = {name: float(d.pow(2).mean().sqrt()) for name, d in diff.items()}
+    limit = err["half_step"]
+    return {"dtype": cfg.dtype, "prompt_tokens": P, "decode_steps": K - 1,
+            "half_step_rel": KV_QUANT_HALF_STEP,
+            "max_abs_err": err["int8"], "limit": limit,
+            "max_abs_logit": float(runs["unquantised"].abs().max()),
+            "rms_err": rms["int8"], "half_step_rms_err": rms["half_step"],
+            "within_limit": err["int8"] <= limit,
+            "faults": {f: err[f] for f in faults},
+            "faults_exceed_limit": all(err[f] > limit for f in faults),
+            "prefill_equal": prefill_equal}
+
+
+def phase_qwen_check(torch, np, dev) -> dict:
+    """Qwen1.5-32B at full width (40 heads of 128 padded to 48 in prefill,
+    QKV bias, d_ff 27392, vocab 152064) cut to QWEN_LAYERS layers: the
+    int8 cache's decode against an unquantised cache's on float32
+    activations (:func:`_kv_quant_consistency`), the bf16 serving path's
+    decode from either cache against teacher forcing; the padded prefill
+    ``==`` the unpadded one on the real heads; flash timed at 48 and at
+    40 heads; a short run_server on the int8 cache, flash counted from 0
+    just before it and required once a layer a prefill."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import count_params, map_tree
+    from repro_torch.serve import engine as serve
+    cfg = dataclasses.replace(get_config("qwen1.5-32b"),
+                              num_layers=QWEN_LAYERS)
+    quant = dataclasses.replace(cfg, kv_quant=True)
+    allocated = _free(torch)
+    params, init_s, weight_bytes, init_peak = _init_model(torch, cfg, dev)
+    _check_init_peak(torch, "qwen check", init_peak)
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, QWEN_TF_PROMPT).astype(np.int32)
+    # the int8 cache against an unquantised one, on float32 activations
+    # over the same (bfloat16-valued) weights
+    int8 = _kv_quant_consistency(
+        torch, np, tf, layers, map_tree(lambda _, t: t.float(), params),
+        dataclasses.replace(cfg, dtype="float32"), prompt,
+        np.random.default_rng(1))
+    _free(torch)
+    # the serving path against teacher forcing; the int8 cache may add
+    # what the quantisation moved the float32 logits by (int8's limit)
+    consistency = {
+        "bfloat16_cache": _teacher_forcing(torch, np, tf, params, cfg,
+                                           prompt, np.random.default_rng(1)),
+        "int8_cache": _teacher_forcing(torch, np, tf, params, quant, prompt,
+                                       np.random.default_rng(1),
+                                       extra=int8["limit"]),
+        "int8_against_unquantised_float32": int8}
+    padding = _padded_equals_unpadded(
+        torch, np, tf, layers, params, cfg,
+        rng.integers(0, cfg.vocab_size, QWEN_EQUAL_PROMPT).astype(np.int32))
+    _free(torch)
+    flash_by_heads = {}
+    for heads in (cfg.pad_heads_to, cfg.num_heads):
+        case = (1, heads, heads, 3072, 3072, cfg.head_dim_, True, 0)
+        flash_by_heads[heads] = _flash_shape_line(
+            case, _flash_timed(torch, np, flash, dev, case), None)
+    padding_cost = (flash_by_heads[cfg.pad_heads_to]["kernel_ms"]
+                    / flash_by_heads[cfg.num_heads]["kernel_ms"])
+    kv_bytes = {name: sum(t.numel() * t.element_size() for t in _leaves(
+        tf.init_decode_state(c, SERVE_SLOTS, SERVE_CACHE,
+                             dtype=torch.bfloat16, device="meta")))
+        for name, c in (("bfloat16", cfg), ("int8", quant))}
+    reqs = [serve.Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=new)
+        for i, (n, new) in enumerate(QWEN_REQS)]
+    eng = serve.ServeEngine(quant, params, serve.EngineConfig(
+        num_slots=SERVE_SLOTS, cache_len=SERVE_CACHE), device=dev)
+    engine_kv = sum(t.numel() * t.element_size() for t in _leaves(eng.states))
+    flash.launches = 0
+    t0 = time.perf_counter()
+    metrics = serve.run_server(eng, reqs, log=lambda s: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = flash.launches
+    ok_tokens = all(len(r.tokens) == new and
+                    all(0 <= t < cfg.vocab_size for t in r.tokens)
+                    for r, (_, new) in zip(reqs, QWEN_REQS))
+    line = {"phase": "qwen_check", "arch": cfg.name, "layers": QWEN_LAYERS,
+            "published_layers": get_config("qwen1.5-32b").num_layers,
+            "params": count_params(tf.model_specs(cfg)),
+            "weight_bytes": weight_bytes, "param_init_s": init_s,
+            "param_init_peak_device_bytes": init_peak,
+            "allocated_before_bytes": allocated,
+            "pad_heads_to": cfg.pad_heads_to, "num_heads": cfg.num_heads,
+            "consistency": consistency, "padding": padding,
+            "flash_by_heads": flash_by_heads,
+            "flash_padded_over_unpadded": padding_cost,
+            "kv_cache_bytes": kv_bytes, "engine_kv_cache_bytes": engine_kv,
+            "run_server_int8": metrics, "wall_s": wall,
+            "tokens_ok": ok_tokens, "flash_launches": launched,
+            "flash_launches_expected": QWEN_LAYERS * len(QWEN_REQS)}
+    emit(line)
+    del eng, params
+    _free(torch)
+    checks = (all(consistency[c]["within_limit"] for c in consistency)
+              and int8["faults_exceed_limit"]
+              and int8["prefill_equal"]
+              and padding["core_real_heads_equal"]
+              and padding["logits_equal"] and padding["states_equal"]
+              and ok_tokens and engine_kv == kv_bytes["int8"]
+              and launched == QWEN_LAYERS * len(QWEN_REQS))
+    if not checks:
+        raise SystemExit("qwen check: teacher forcing, the int8 decode "
+                         "against the unquantised one or its planted "
+                         "faults, the "
+                         "padding's equality, the int8 engine or its flash "
+                         "launches (one a layer a prefill) failed")
     return line
 
 
@@ -2663,6 +3092,11 @@ def main() -> int:
     moe_line = phase_moe_serve_main(torch, np, dev)
     gr = phase_granite(torch, np, dev)
     emit({"phase": "moe_phases", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    dg = phase_dense_golden(torch, np, dev)
+    cr = phase_command_r_serve_main(torch, np, dev)
+    qw = phase_qwen_check(torch, np, dev)
+    emit({"phase": "dense_phases", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -2758,8 +3192,14 @@ def main() -> int:
             "train": tm["launches"]["flash_attention"],
             "moe_serve": moe_line["launches"]["flash_attention"],
             "moe_golden_float32": mg["flash_launches"],
-            "granite": gr["flash_launches"]},
+            "granite": gr["flash_launches"],
+            "command_r_serve": cr["launches"]["flash_attention"],
+            "dense_golden_float32": dg["flash_launches"],
+            "qwen_check": qw["flash_launches"]},
         "moe_shape": fl["moe_shape"],
+        "command_r_shape": fl["command_r_shape"],
+        "qwen_shape_padded": qw["flash_by_heads"][qw["pad_heads_to"]],
+        "qwen_shape_unpadded": qw["flash_by_heads"][qw["num_heads"]],
         "max_abs_err": fl["max_abs_err"],
         "max_abs_err_train": fl["max_abs_err_train"], "ms": fl["kernel_ms"],
         "plain_ms": fl["plain_ms"], "library_ms": fl["library_ms"],

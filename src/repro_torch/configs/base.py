@@ -5,11 +5,17 @@ A model is a list of *segments*, each ``repeats`` × a superblock of
 blocks; a segment with ``repeats > 1`` keeps its parameters and decode
 state stacked on a leading layer axis, as the reference's scanned
 segments do, so a parameter tree crosses between the two packages by
-key.  The port builds the dense plan (``attn`` + ``dense``), the
-Griffin hybrid plan (``rglru`` ×2 + ``local_attn``), the xLSTM plan
+key.  The port builds the dense plan (``attn`` + ``dense``, sequential
+or, with ``parallel_block``, attention and MLP on one shared pre-norm),
+the Griffin hybrid plan (``rglru`` ×2 + ``local_attn``), the xLSTM plan
 (``mlstm`` ×(k−1) + ``slstm``, no MLP) and the MoE plan
 (``first_k_dense`` × (``attn``, ``dense``), then (``attn``, ``moe``));
 the encoder tower raises (ROADMAP Queue 1 item 11).
+
+``param_count`` and ``active_param_count`` are the reference's
+approximations (embeddings and the blocks' large matrices, no norms or
+biases), formula for formula; ``models.params.count_params`` counts a
+spec tree exactly.
 
 The forecaster's mLSTM trunk reads ``d_model``, ``num_heads``,
 ``proj_factor`` and ``conv_width`` only.
@@ -92,8 +98,12 @@ class ArchConfig:
     # encoder-decoder (not ported)
     is_encoder_decoder: bool = False
 
-    # options of the reference that the port does not run; each raises
-    # NotImplementedError where the reference would read it
+    # kv_quant: an int8 KV cache with a float16 max-abs scale per (slot,
+    # kv head, position) (repro_torch/models/layers.py quantize_kv).
+    # pad_heads_to: prefill and training attention run on this many
+    # heads, the extra ones zero and sliced off before w_o (qwen1.5-32b:
+    # 40 -> 48); decode does not pad.  (The reference's gather_dtype, an
+    # FSDP knob, is not carried.)
     kv_quant: bool = False
     pad_heads_to: int = 0
 
@@ -119,6 +129,46 @@ class ArchConfig:
     @property
     def q_per_kv(self) -> int:
         return self.num_heads // self.num_kv_heads
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), the
+        reference's formula.  The encoder tower's and cross attention's
+        terms are not carried: the port's ``layer_plan`` raises for an
+        encoder-decoder."""
+        d, hd = self.d_model, self.head_dim_
+        n_q, n_kv = self.num_heads, self.num_kv_heads
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for seg in self.layer_plan():
+            for blk in seg.blocks * seg.repeats:
+                if blk.mixer in ("attn", "local_attn"):
+                    total += d * hd * (n_q + 2 * n_kv) + n_q * hd * d
+                elif blk.mixer == "mlstm":
+                    up = int(d * self.proj_factor)
+                    total += 2 * d * up + 3 * up * up // max(n_q, 1) + up * d
+                elif blk.mixer == "slstm":
+                    total += 4 * d * d + 4 * d * (d // max(n_q, 1)) + d * d
+                elif blk.mixer == "rglru":
+                    rnn = self.d_rnn or d
+                    total += 2 * d * rnn + 2 * rnn * rnn // 8 + rnn * d
+                if blk.mlp == "dense":
+                    ff = self.dense_d_ff or self.d_ff
+                    total += d * ff * (3 if self.gated_mlp else 2)
+                elif blk.mlp == "moe":
+                    ff = self.moe_d_ff or self.d_ff
+                    total += self.n_experts * d * ff * 3 + d * self.n_experts
+                    total += self.n_shared_experts * d * ff * 3
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters a token touches (MoE: the routed experts it is not
+        sent to left out), for model FLOPs = 6 · N_active · tokens."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d = self.d_model
+        ff = self.moe_d_ff or self.d_ff
+        inactive = (self.n_experts - self.experts_per_token) * d * ff * 3
+        moe_layers = self.num_layers - self.first_k_dense
+        return self.param_count() - moe_layers * inactive
 
     def layer_plan(self) -> List[Segment]:
         """Decoder segments: the xLSTM pattern for ``ssm``, the Griffin

@@ -29,7 +29,7 @@ from repro_torch.serve.sampling import SamplingConfig
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--arch", default="recurrentgemma-9b",
+    ap.add_argument("--arch", default="deepseek-7b",
                     choices=list_archs())
     ap.add_argument("--tiny", action="store_true", default=True,
                     help="use the reduced smoke config (the default)")

@@ -5,7 +5,9 @@ Layout conventions (the reference's)
   activations: (B, T, D);  q/k/v: (B, T, H, head_dim)
   KV cache: {"k", "v": (B, Kv, S, hd), "pos": int32 (B,)}
             (local attention is a ring buffer: position p lives in slot
-             p % S, S = min(window, cache_len))
+             p % S, S = min(window, cache_len)); with ``kv_quant`` the
+            k, v payloads are int8 beside float16 scales
+            "k_scale", "v_scale": (B, Kv, S)
 
 Full-sequence attention goes through
 :func:`repro_torch.kernels.flash_attention.flash_attention` (the CUDA
@@ -14,12 +16,16 @@ the kv heads in place of repeating them.  The reference's ``_mha``
 rounds the softmax weights to the activation dtype before the weighted
 sum; so does the kernel in bfloat16 (it feeds them to the tensor cores
 as bf16), while in float32, and in the plain version, they stay float32
-as in the Pallas kernel.  The one-token decode attends over the cache in
-plain PyTorch, as the reference does with einsums.
+as in the Pallas kernel.  With ``pad_heads_to`` the kernel runs on the
+padded head count (k, v repeated to every query head, then zero heads
+appended, as the reference does); the kernel computes each head apart,
+so the real heads do not change.  The one-token decode attends over the
+cache in plain PyTorch, as the reference does with einsums, and does not
+pad.
 
-Not ported (each raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 11; RecurrentGemma uses none): the int8 KV cache (``kv_quant``),
-logit soft-capping, padded heads, cross attention.
+Not ported (raises ``NotImplementedError`` naming ROADMAP Queue 1 item
+11): logit soft-capping, and cross attention
+(``repro_torch/models/transformer.py``).
 """
 from __future__ import annotations
 
@@ -34,12 +40,10 @@ from repro_torch.models.params import ParamSpec
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the attention options the port does not run."""
-    for name, on in (("kv_quant", cfg.kv_quant),
-                     ("attn_logit_softcap", cfg.attn_logit_softcap > 0),
-                     ("pad_heads_to", cfg.pad_heads_to > cfg.num_heads)):
-        if on:
-            raise NotImplementedError(f"{cfg.name}: {name} is {NOT_PORTED}")
+    """Raise for the attention option the port does not run."""
+    if cfg.attn_logit_softcap > 0:
+        raise NotImplementedError(f"{cfg.name}: attn_logit_softcap is "
+                                  f"{NOT_PORTED}")
 
 
 # --------------------------------------------------------------------------- #
@@ -189,16 +193,28 @@ def _out_proj(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     return out.flatten(-2) @ w_o.to(out.dtype).reshape(H * hd, D)
 
 
-def attention_from_qkv(q, k, v, *, causal: bool = True,
-                       window: int = 0) -> torch.Tensor:
+def attention_from_qkv(q, k, v, *, causal: bool = True, window: int = 0,
+                       pad_heads_to: int = 0) -> torch.Tensor:
     """The softmax core over projected (B, T, H, hd) q, k, v: the kernel,
     with q already scaled (``sm_scale = 1``).  Positions are 0..T-1, the
-    only positions full-sequence attention is called with."""
+    only positions full-sequence attention is called with.
+
+    With ``pad_heads_to`` above the query heads, k and v are repeated to
+    every query head and q, k, v get zero heads up to that count, as the
+    reference pads (``layers.py:207-220``); the kernel runs MHA on the
+    padded heads and the output keeps the real ones."""
+    n_heads = q.shape[2]
+    if pad_heads_to > n_heads:
+        rep = n_heads // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+        pad = (0, 0, 0, pad_heads_to - n_heads)
+        q, k, v = (F.pad(t, pad) for t in (q, k, v))
     out = flash_attention(q.transpose(1, 2).contiguous(),
                           k.transpose(1, 2).contiguous(),
                           v.transpose(1, 2).contiguous(),
                           causal=causal, window=window, sm_scale=1.0)
-    return out.transpose(1, 2)
+    return out.transpose(1, 2)[:, :, :n_heads]
 
 
 def attention(p, x: torch.Tensor, cfg: ArchConfig, *,
@@ -208,7 +224,8 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     0..T-1 (the reference's callers pass no other)."""
     check_ported(cfg)
     q, k, v = _project_qkv(p, x, cfg, positions, use_rope)
-    out = attention_from_qkv(q, k, v, causal=causal, window=window)
+    out = attention_from_qkv(q, k, v, causal=causal, window=window,
+                             pad_heads_to=cfg.pad_heads_to)
     return _out_proj(out, p["w_o"])
 
 
@@ -218,13 +235,50 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                   window: int = 0, dtype=torch.bfloat16,
                   device=None) -> Dict[str, torch.Tensor]:
     """(B, Kv, S, hd) k and v, S = min(window, max_len) for a ring buffer,
-    and per-example positions (B,)."""
+    and per-example positions (B,).  With ``cfg.kv_quant``, int8 k and v
+    and float16 scales (B, Kv, S), whatever ``dtype`` is."""
     check_ported(cfg)
     size = min(window, max_len) if window > 0 else max_len
     shape = (batch, cfg.num_kv_heads, size, cfg.head_dim_)
-    return {"pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if cfg.kv_quant:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=device)
+            cache[f"{name}_scale"] = torch.zeros(shape[:3],
+                                                 dtype=torch.float16,
+                                                 device=device)
+    else:
+        cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
+        cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
+    return cache
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (..., hd) -> (int8 payload, float16 max-abs scale over hd), as
+    the reference's ``quantize_kv``: the payload is rounded with the
+    float32 scale, and the scale is stored (and later read) as float16.
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1), 1e-6) / 127.0
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale.to(torch.float16)
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over batched (..., M, K) and (..., K, N) of one dtype,
+    summed and returned in float32: the reference's einsums with
+    ``preferred_element_type=float32``.  A product of two bfloat16 values
+    is exact in float32, so on the CPU the operands are widened; on the
+    card a bfloat16 ``bmm`` writes float32 (no float32 copy of a cache
+    operand)."""
+    if a.dtype == torch.float32:
+        return a @ b
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    lead = a.shape[:-2]
+    out = torch.bmm(a.reshape(-1, *a.shape[-2:]), b.reshape(-1, *b.shape[-2:]),
+                    out_dtype=torch.float32)
+    return out.reshape(*lead, *out.shape[-2:])
 
 
 def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
@@ -233,7 +287,16 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     """One token against the cache.  x: (B, 1, D).  The new k, v are
     written into ``cache`` in place, at slot ``pos % S`` (ring buffer) or
     ``min(pos, S - 1)``, and ``pos`` advances; the returned cache is the
-    same dict."""
+    same dict.
+
+    With ``cfg.kv_quant`` the new k, v are quantised (:func:`quantize_kv`)
+    and the read folds the scales in, as the reference does
+    (``layers.py:340-378``): the logits are ``q . k8`` summed in float32
+    times the key's float16 scale; the softmax weights times the value's
+    scale are rounded to bfloat16 **whatever the activation dtype**, then
+    summed against the int8 payload in float32.  The payload is read in
+    the activation dtype (int8 is exact in bfloat16), never as a float32
+    copy of the cache."""
     check_ported(cfg)
     B, T, _ = x.shape
     if T != 1:
@@ -245,12 +308,22 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     S = k.shape[2]
     slot = torch.remainder(pos, S) if window > 0 else \
         torch.clamp_max(pos, S - 1)
-    rows = torch.arange(B, device=x.device)
-    k[rows, :, slot.long()] = k_new[:, 0].to(k.dtype)
-    v[rows, :, slot.long()] = v_new[:, 0].to(v.dtype)
+    rows, slot = torch.arange(B, device=x.device), slot.long()
+    if cfg.kv_quant:
+        for name, new in (("k", k_new), ("v", v_new)):
+            payload, scale = quantize_kv(new[:, 0])      # (B,Kv,hd), (B,Kv)
+            cache[name][rows, :, slot] = payload
+            cache[f"{name}_scale"][rows, :, slot] = scale
+    else:
+        k[rows, :, slot] = k_new[:, 0].to(k.dtype)
+        v[rows, :, slot] = v_new[:, 0].to(v.dtype)
 
     qg = q.reshape(B, Kv, G, hd)
-    scores = torch.einsum("bkgh,bksh->bkgs", qg.float(), k.float())
+    if cfg.kv_quant:
+        scores = _dot_f32(qg, k.to(q.dtype).transpose(-1, -2))
+        scores = scores * cache["k_scale"].float()[:, :, None, :]
+    else:
+        scores = torch.einsum("bkgh,bksh->bkgs", qg.float(), k.float())
     slot_ids = torch.arange(S, dtype=torch.int32, device=x.device)
     pb = pos.reshape(B, 1)
     if window > 0:
@@ -260,8 +333,13 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     else:
         valid = slot_ids[None, :] <= pb
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
-    w = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgs,bksh->bkgh", w, v).reshape(B, 1, cfg.num_heads,
-                                                        hd)
+    w = torch.softmax(scores, dim=-1)
+    if cfg.kv_quant:
+        # bfloat16 even for float32 activations, as the reference rounds
+        w = (w * cache["v_scale"].float()[:, :, None, :]).to(torch.bfloat16)
+        out = _dot_f32(w, v.to(torch.bfloat16)).to(x.dtype)
+    else:
+        out = torch.einsum("bkgs,bksh->bkgh", w.to(q.dtype), v)
+    out = out.reshape(B, 1, cfg.num_heads, hd)
     pos.add_(1)
     return _out_proj(out, p["w_o"]), cache

@@ -13,7 +13,11 @@ reference's scanned segments do.
 ``torch.Generator``; its numbers are not JAX's, since the two generators
 differ for one seed.  With a CUDA generator it draws on the card, leaf by
 leaf, each leaf in the dtype asked for, so a multi-GB model never passes
-through host memory as float32.
+through host memory as float32.  A leaf of more than
+:data:`_INIT_PIECE` values is drawn in pieces along its leading axis,
+each cast into the preallocated leaf, so the draw's peak is the
+parameters plus one float32 piece (Command-R-35B's stacked MLP leaves
+are 29.5 GB in float32 each).
 
 Both builders take ``dtype``: one ``torch.dtype`` for every leaf, or a
 function of a leaf's key path that gives its dtype (the serving form,
@@ -106,29 +110,49 @@ def _leaf_dtype(dtype: Optional[DType], path: Path,
     return dtype(path) if callable(dtype) else dtype
 
 
-def _init_leaf(spec: ParamSpec, generator: torch.Generator, dtype,
-               device) -> torch.Tensor:
-    """One leaf, drawn in float32 on the generator's device, then cast to
-    ``dtype`` and moved to ``device``."""
-    if spec.init == "zeros":
-        return torch.zeros(spec.shape, dtype=dtype, device=device)
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=dtype, device=device)
+# Values of a leaf drawn at once by init_params (4 GB of float32): a
+# larger leaf is drawn in pieces along its leading axis.
+_INIT_PIECE = 1 << 30
+
+
+def _draw(spec: ParamSpec, generator: torch.Generator,
+          shape: Tuple[int, ...]) -> torch.Tensor:
+    """``shape`` values of the leaf's initialiser in float32 on the
+    generator's device (the std from the fan-in of the whole leaf)."""
     draw_on = generator.device
     if spec.init == "rglru_lambda":
         # Griffin's Lambda: a = exp(-c softplus(Lambda)) = sqrt(u), with u
         # uniform in [0.9^2, 0.999^2], so a lies in [0.9, 0.999].
         lo, hi = 0.9 ** 2, 0.999 ** 2
-        u = torch.rand(spec.shape, generator=generator, dtype=torch.float32,
+        u = torch.rand(shape, generator=generator, dtype=torch.float32,
                        device=draw_on) * (hi - lo) + lo
-        draw = torch.log(torch.expm1(-0.5 * torch.log(u) / 8.0))
-    elif spec.init == "normal":
+        return torch.log(torch.expm1(-0.5 * torch.log(u) / 8.0))
+    if spec.init == "normal":
         std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        draw = torch.randn(spec.shape, generator=generator,
-                           dtype=torch.float32, device=draw_on).mul_(std)
-    else:
-        raise ValueError(f"init {spec.init!r} is not ported")
-    return draw.to(dtype=dtype, device=device)
+        return torch.randn(shape, generator=generator, dtype=torch.float32,
+                           device=draw_on).mul_(std)
+    raise ValueError(f"init {spec.init!r} is not ported")
+
+
+def _init_leaf(spec: ParamSpec, generator: torch.Generator, dtype,
+               device) -> torch.Tensor:
+    """One leaf, drawn in float32 on the generator's device, then cast to
+    ``dtype`` on ``device``: whole up to :data:`_INIT_PIECE` values, else
+    a run of leading rows at a time into the preallocated leaf."""
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=device)
+    if math.prod(spec.shape) <= _INIT_PIECE:
+        return _draw(spec, generator, spec.shape).to(dtype=dtype,
+                                                     device=device)
+    lead, rest = spec.shape[0], spec.shape[1:]
+    rows = max(1, _INIT_PIECE // max(math.prod(rest), 1))
+    leaf = torch.empty(spec.shape, dtype=dtype, device=device)
+    for lo in range(0, lead, rows):
+        n = min(rows, lead - lo)
+        leaf[lo:lo + n].copy_(_draw(spec, generator, (n,) + rest))
+    return leaf
 
 
 def init_params(specs, generator: torch.Generator, device=None,
@@ -158,17 +182,19 @@ def params_from_numpy(tree, device=None,
 
 
 def _numpy_leaf(spec: ParamSpec, rng: np.random.Generator,
-                shape=None) -> np.ndarray:
-    """The leaf's draw, or its next ``shape`` values (a run of one draw
+                out: np.ndarray) -> np.ndarray:
+    """The leaf's next ``out.size`` values as float32, drawn into the
+    float64 ``out`` (a whole leaf, or a piece of it: a run of one draw
     taken in pieces gives the same numbers)."""
-    shape = spec.shape if shape is None else shape
     if spec.init == "zeros":
-        return np.zeros(shape, np.float32)
+        return np.zeros(out.shape, np.float32)
     if spec.init == "ones":
-        return np.ones(shape, np.float32)
+        return np.ones(out.shape, np.float32)
     if spec.init == "normal":
         std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        return (rng.standard_normal(shape) * std).astype(np.float32)
+        rng.standard_normal(out=out)
+        out *= std
+        return out.astype(np.float32)
     raise ValueError(f"init {spec.init!r} has no numpy draw")
 
 
@@ -178,7 +204,7 @@ def numpy_params(specs, seed: int) -> Dict:
     normal leaf is a standard normal times ``scale / sqrt(fan_in)``, as
     the reference's initialiser, zeros and ones as they are."""
     rng = np.random.default_rng(seed)
-    flat = {path: _numpy_leaf(spec, rng)
+    flat = {path: _numpy_leaf(spec, rng, np.empty(spec.shape))
             for path, spec in leaves_with_paths(specs)}
     return map_tree(lambda path, _: flat[path], specs)
 
@@ -197,14 +223,15 @@ def numpy_params_on(specs, seed: int, device=None,
     rng = np.random.default_rng(seed)
     h = hashlib.sha256()
     flat = {}
+    scratch = np.empty(_DRAW_PIECE)
     for path, spec in leaves_with_paths(specs):
         _digest_head(h, path, spec.shape, np.dtype(np.float32))
         leaf = torch.empty(spec.shape, dtype=_leaf_dtype(dtype, path),
                            device=dev)
         n = math.prod(spec.shape)
         for lo in range(0, n, _DRAW_PIECE):
-            a = _numpy_leaf(spec, rng, (min(_DRAW_PIECE, n - lo),))
-            h.update(a.tobytes())
+            a = _numpy_leaf(spec, rng, scratch[:min(_DRAW_PIECE, n - lo)])
+            h.update(memoryview(a))
             leaf.view(-1)[lo:lo + a.size] = torch.from_numpy(a)
         flat[path] = leaf
     return map_tree(lambda path, _: flat[path], specs), h.hexdigest()

@@ -25,11 +25,16 @@ chain does (``transformer.py:447-460``), and returns the same object.
 Mixers ``attn``, ``local_attn``, ``rglru``, ``mlstm`` and ``slstm`` and
 the ``dense``, ``moe`` and ``none`` MLPs are ported (a block with no MLP
 has no ``norm2``, as xLSTM's; the dense blocks of an MoE config are
-``dense_d_ff`` wide).  Prefill and decode run the MoE layer as training
+``dense_d_ff`` wide).  With ``parallel_block`` a dense block feeds one
+pre-norm to both the mixer and the MLP, ``x + mix + mlp(h)``, and has no
+``norm2`` (Command-R).  Prefill and decode run the MoE layer as training
 does, without its aux; at decode T = 1, so each slot is its own group
-and no choice is dropped.  Cross attention, parallel blocks and the
-modality stubs raise ``NotImplementedError`` naming ROADMAP Queue 1
-item 11.
+and no choice is dropped.  With ``kv_quant`` the prefill writes the
+int8 cache as the reference does, the reference's quirk included: a
+windowed layer whose prompt overruns its window gets its ring's
+payload but not its scales (``apply_block_prefill``).  Cross attention
+and the modality stubs raise ``NotImplementedError`` naming ROADMAP
+Queue 1 item 11.
 """
 from __future__ import annotations
 
@@ -112,9 +117,15 @@ def _check_block(blk: BlockSpec, cfg: ArchConfig) -> None:
         raise NotImplementedError(f"mixer {blk.mixer!r} is {NOT_PORTED}")
     if blk.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(f"mlp {blk.mlp!r} is {NOT_PORTED}")
-    if blk.cross_attn or cfg.parallel_block:
-        raise NotImplementedError(f"{cfg.name}: cross attention and "
-                                  f"parallel blocks are {NOT_PORTED}")
+    if blk.cross_attn:
+        raise NotImplementedError(f"{cfg.name}: cross attention is "
+                                  f"{NOT_PORTED}")
+
+
+def _parallel(blk: BlockSpec, cfg: ArchConfig) -> bool:
+    """Whether the block runs mixer and MLP on one shared pre-norm (a
+    dense block of a ``parallel_block`` config, as the reference's)."""
+    return cfg.parallel_block and blk.mlp == "dense"
 
 
 # --------------------------------------------------------------------------- #
@@ -128,8 +139,9 @@ def _block_specs(blk: BlockSpec, cfg: ArchConfig) -> Dict[str, Any]:
     specs = {"norm1": layers.norm_specs(cfg), "mixer": mixer}
     if blk.mlp == "dense":
         ff = cfg.dense_d_ff if cfg.n_experts > 0 and cfg.dense_d_ff else None
-        specs.update(norm2=layers.norm_specs(cfg),
-                     mlp=layers.mlp_specs(cfg, ff))
+        if not _parallel(blk, cfg):
+            specs["norm2"] = layers.norm_specs(cfg)
+        specs["mlp"] = layers.mlp_specs(cfg, ff)
     elif blk.mlp == "moe":
         specs.update(norm2=layers.norm_specs(cfg), mlp=moe.moe_specs(cfg))
     return specs
@@ -166,13 +178,16 @@ def _window(blk: BlockSpec, cfg: ArchConfig) -> int:
     return cfg.sliding_window if blk.mixer == "local_attn" else 0
 
 
-def _finish_block(blk: BlockSpec, p, x, mix, cfg: ArchConfig):
+def _finish_block(blk: BlockSpec, p, x, h, mix, cfg: ArchConfig):
     """The residual add of the mixer, then the MLP's: (x, routing), the
-    MoE layer's routing or None."""
+    MoE layer's routing or None.  ``h`` is the block's pre-norm, which a
+    parallel block's MLP reads (``x + mix + mlp(h)``, added in that
+    order, as the reference does)."""
     x = x + mix
     if blk.mlp == "none":
         return x, None
-    h = layers.apply_norm(p["norm2"], x, cfg)
+    if not _parallel(blk, cfg):
+        h = layers.apply_norm(p["norm2"], x, cfg)
     if blk.mlp == "moe":
         y, r = moe.apply_moe(p["mlp"], h, cfg)
         return x + y, r
@@ -191,7 +206,7 @@ def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
         mix = layers.attention(p["mixer"], h, cfg, positions=positions,
                                causal=causal, window=_window(blk, cfg),
                                use_rope=cfg.use_rope)
-    x, r = _finish_block(blk, p, x, mix, cfg)
+    x, r = _finish_block(blk, p, x, h, mix, cfg)
     return x, None if r is None else moe.aux_loss(r, cfg)
 
 
@@ -224,16 +239,22 @@ def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     h = layers.apply_norm(p["norm1"], x, cfg)
     if blk.mixer in _RECURRENT:
         mix, state = _RECURRENT[blk.mixer].prefill(p["mixer"], h, cfg)
-        return _finish_block(blk, p, x, mix, cfg)[0], state
+        return _finish_block(blk, p, x, h, mix, cfg)[0], state
     window = _window(blk, cfg)
     q, k, v = layers._project_qkv(p["mixer"], h, cfg, positions,
                                   cfg.use_rope)
     state = layers.init_kv_cache(cfg, B, cache_len, window=window,
                                  dtype=x.dtype, device=x.device)
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)    # (B, Kv, S, hd)
+    scales = {}
+    if cfg.kv_quant:
+        (kc, scales["k_scale"]), (vc, scales["v_scale"]) = (
+            layers.quantize_kv(kc), layers.quantize_kv(vc))
     W = state["k"].shape[2]
     if window > 0 and S > W:
-        # ring write of the last W positions, split at the wrap point
+        # ring write of the last W positions, split at the wrap point.
+        # The reference writes only the payloads here (transformer.py:
+        # 255-262): with kv_quant the scales of such a layer stay 0.
         slot0 = (S - W) % W
         first = W - slot0
         for buf, val in ((state["k"], kc[:, :, S - W:]),
@@ -245,10 +266,13 @@ def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     else:
         state["k"][:, :, :S] = kc
         state["v"][:, :, :S] = vc
+        for name, val in scales.items():
+            state[name][:, :, :S] = val
     state["pos"].fill_(S)
-    out = layers.attention_from_qkv(q, k, v, causal=True, window=window)
+    out = layers.attention_from_qkv(q, k, v, causal=True, window=window,
+                                    pad_heads_to=cfg.pad_heads_to)
     mix = layers._out_proj(out, p["mixer"]["w_o"])
-    return _finish_block(blk, p, x, mix, cfg)[0], state
+    return _finish_block(blk, p, x, h, mix, cfg)[0], state
 
 
 def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
@@ -261,7 +285,7 @@ def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
         mix, state = layers.decode_attention(p["mixer"], h, cfg, state,
                                              window=_window(blk, cfg),
                                              use_rope=cfg.use_rope)
-    return _finish_block(blk, p, x, mix, cfg)[0], state
+    return _finish_block(blk, p, x, h, mix, cfg)[0], state
 
 
 # --------------------------------------------------------------------------- #

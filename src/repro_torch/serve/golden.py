@@ -9,9 +9,13 @@
   128, 64 routed experts 1408 wide, top-6, 2 shared experts, a first
   dense layer 10944 wide) cut to 3 layers (1 dense + 2 MoE), a
   1024-token prefill (two groups of 512 at capacity 60, so some choices
-  are dropped).
+  are dropped);
+* ``tests/data/torch_dense_serve_golden/expected.npz`` (:data:`DENSE`):
+  a float32 twin at Command-R-35B's widths (d_model 8192, 64 query heads
+  over 8 kv heads of 128, d_ff 22528, LayerNorm, parallel blocks, tied
+  embeddings, RoPE theta 8e6) cut to 2 layers, a 512-token prefill.
 
-Both have a vocab of :data:`VOCAB` and parameters drawn by
+Each has a vocab of :data:`VOCAB` and parameters drawn by
 ``numpy_params(model_specs(cfg), seed)``.  A fixture holds the seed and
 the parameters' digest (not the parameters), JAX's logits for the
 prefill and 8 decode steps of 2 sequences, and a JAX ``ServeEngine``
@@ -19,12 +23,12 @@ run's greedy tokens, stamps and metrics on a virtual clock; the MoE
 fixture also holds JAX's chosen experts in each MoE layer of the
 prefill and the decode steps.
 
-``tests/test_torch_xlstm.py`` and ``tests/test_torch_moe.py`` build them
-with the JAX package from these helpers; the CPU tests, the card tests
-and ``chip_smoke.py`` replay them through :func:`replay` and compare
-with :data:`TOL`.  Those callers read the port's chosen experts by
-wrapping ``moe.route`` around the replay and compare them with
-:func:`routing_report`.
+``tests/test_torch_xlstm.py``, ``tests/test_torch_moe.py`` and
+``tests/test_torch_dense.py`` build them with the JAX package from these
+helpers; the CPU tests, the card tests and ``chip_smoke.py`` replay them
+through :func:`replay` and compare with :data:`TOL`.  The MoE fixture's
+callers read the port's chosen experts by wrapping ``moe.route`` around
+the replay and compare them with :func:`routing_report`.
 """
 from __future__ import annotations
 
@@ -70,6 +74,9 @@ XLSTM = Fixture("xlstm-125m", layers=8, prefill=128, decode=8,
 MOE = Fixture("deepseek-moe-16b", layers=3, prefill=1024, decode=8,
               requests=((12, 5, 0.0), (512, 4, 0.0), (7, 6, 1.0)),
               slots=2, cache_len=1040)
+DENSE = Fixture("command-r-35b", layers=2, prefill=512, decode=8,
+                requests=((12, 5, 0.0), (300, 4, 0.0), (7, 6, 1.0)),
+                slots=2, cache_len=528)
 
 
 def config(fixture: Fixture, cfg=None):

@@ -213,12 +213,55 @@ def test_attention_layer_matches_jax_bfloat16():
     np.testing.assert_allclose(_f32(got), want, atol=2e-2 * scale, rtol=0)
 
 
-@pytest.mark.parametrize("field,value", [("kv_quant", True),
-                                         ("attn_logit_softcap", 30.0),
-                                         ("pad_heads_to", 8)])
+@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 30.0)])
 def test_unported_attention_options_raise(field, value):
     _, cfg, _, p, x, pos = _attn_setup("float32")
     cfg = dataclasses.replace(cfg, **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         port_layers.attention(p, torch.from_numpy(x), cfg,
                               positions=torch.from_numpy(pos.copy()))
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_padded_heads_attention_matches_jax(window):
+    """``pad_heads_to`` 8 on the twin's 4 query heads over 1 kv head: k
+    and v repeated to every query head, zero heads appended, the kernel
+    run on 8 heads and the 4 real ones kept, against the reference's
+    padded ``attention`` in float32."""
+    ref_cfg, cfg, tree, p, x, pos = _attn_setup("float32", seed=2)
+    ref_cfg, cfg = (dataclasses.replace(c, pad_heads_to=8)
+                    for c in (ref_cfg, cfg))
+    assert cfg.num_heads == 4 and cfg.num_kv_heads == 1
+    want = ref_layers.attention(tree, jnp.asarray(x), ref_cfg,
+                                positions=jnp.asarray(pos), window=window)
+    got = port_layers.attention(p, torch.from_numpy(x), cfg,
+                                positions=torch.from_numpy(pos.copy()),
+                                window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("window", [0, 8])
+def test_quantised_decode_attention_matches_jax(window):
+    """``kv_quant``: 10 decode steps into an int8 cache of 16 (a ring of 8
+    with ``window``) against the reference's quantised
+    ``decode_attention``: outputs in float32 at ``atol 1e-5``, the int8
+    payloads and float16 scales ``==``."""
+    ref_cfg, cfg, tree, p, _, _ = _attn_setup("float32", seed=3)
+    ref_cfg, cfg = (dataclasses.replace(c, kv_quant=True)
+                    for c in (ref_cfg, cfg))
+    jc = ref_layers.init_kv_cache(ref_cfg, 2, 16, window=window)
+    tc = port_layers.init_kv_cache(cfg, 2, 16, window=window, device="cpu")
+    rng = np.random.default_rng(3)
+    for _ in range(10):
+        x = (0.5 * rng.standard_normal((2, 1, cfg.d_model))).astype(
+            np.float32)
+        jo, jc = ref_layers.decode_attention(tree, jnp.asarray(x), ref_cfg,
+                                             jc, window=window)
+        to, tc = port_layers.decode_attention(p, torch.from_numpy(x), cfg,
+                                              tc, window=window)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=1e-5,
+                                   rtol=1e-5)
+    for key in ("k", "v", "k_scale", "v_scale", "pos"):
+        assert tc[key].dtype == getattr(torch, str(jc[key].dtype)), key
+        assert np.array_equal(tc[key].numpy(), np.asarray(jc[key])), key

@@ -12,6 +12,7 @@ not installed.
 """
 import dataclasses
 import hashlib
+import math
 from pathlib import Path
 
 import numpy as np
@@ -581,6 +582,9 @@ FLASH_CASES = (
     (1, 3, 1, 1, 1, 64, False, 0, "bfloat16"),
     (1, 16, 16, 1536, 1536, 128, True, 0, "bfloat16"),
     (1, 16, 8, 1024, 1024, 64, True, 0, "bfloat16"),
+    (1, 64, 8, 512, 512, 128, True, 0, "bfloat16"),
+    (1, 64, 8, 512, 512, 128, True, 0, "float32"),
+    (1, 48, 48, 512, 512, 128, True, 0, "bfloat16"),
 )
 # tests/test_kernels.py's tolerances for the Pallas kernel against its
 # oracle: float32 sums in another order, bfloat16 outputs rounded.
@@ -983,3 +987,102 @@ def test_moe_tiny_bf16_serves_on_cuda(cuda, name):
     metrics = serve.run_server(eng, reqs, log=lambda s: None)
     assert metrics["tokens"] == 8
     assert flash.launches - before == 2 * cfg.num_layers
+
+
+# The dense configs' TINY twins with the int8 cache (and Qwen's padded to
+# 6 heads), on the card against the CPU: prefill + 8 decode steps.
+DENSE_CASES = (("command-r-35b", {"kv_quant": True}),
+               ("qwen1.5-32b", {"kv_quant": True, "pad_heads_to": 6}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", DENSE_CASES, ids=lambda c: c[0])
+def test_quantised_decode_on_cuda_matches_cpu(cuda, case, dtype):
+    """The int8 KV cache's decode on the card (the payload read in the
+    activation dtype, float32 sums of bfloat16 products from ``bmm`` with
+    ``out_dtype``) against the CPU on the same parameters: float32 logits
+    within ``atol 1e-4, rtol 1e-3`` (cuBLAS and the CPU sum in other
+    orders), bfloat16 within 2 % of their scale.  The payloads: in
+    float32 within one quantisation step and the float16 scales within one
+    ulp; in bfloat16, where k and v themselves carry the two devices'
+    roundings, within 2 % of a row's largest value plus a rounding step on
+    each side (0.02 x 127 + 1, so 3 steps) and the scales within 2 %.
+    Prefill through the flash kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import numpy_params, params_from_numpy
+    name, overrides = case
+    cfg = dataclasses.replace(get_config(name, tiny=True), dtype=dtype,
+                              **overrides)
+    tree = numpy_params(tf.model_specs(cfg), 1)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (3, 40)))
+    runs = []
+    for dev in (cuda, "cpu"):
+        params = params_from_numpy(tree, dev, dtype=tf.serving_dtype(cfg))
+        before = flash.launches
+        lg, st = tf.prefill(params, {"tokens": tokens[:, :32].to(dev)}, cfg,
+                            48)
+        assert flash.launches - before == (cfg.num_layers if dev == cuda
+                                           else 0)
+        rows = [lg]
+        for i in range(32, 40):
+            lg, st = tf.decode_step(params, tokens[:, i:i + 1].to(dev), st,
+                                    cfg)
+            rows.append(lg)
+        runs.append((torch.stack(rows).float().cpu(), st[0]["block0"]))
+    (got, gst), (want, wst) = runs
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-3)
+    else:
+        assert float((got - want).abs().max()) <= 2e-2 * float(
+            want.abs().max())
+    steps, scale_rtol = (1, 2.0 ** -10) if dtype == "float32" else \
+        (int(0.02 * 127 + 1), 2e-2)
+    for key in ("k", "v"):
+        assert gst[key].dtype == torch.int8
+        diff = (gst[key].cpu().int() - wst[key].int()).abs()
+        assert int(diff.max()) <= steps, key
+    for key in ("k_scale", "v_scale"):
+        torch.testing.assert_close(gst[key].cpu().float(), wst[key].float(),
+                                   rtol=scale_rtol, atol=0)
+
+
+@pytest.mark.gpu
+def test_float32_dot_of_bfloat16_on_cuda(cuda):
+    """``layers._dot_f32`` on the card: bfloat16 operands, float32 sums
+    and output, as the CPU's widened product (the same exact products)."""
+    from repro_torch.models import layers
+    rng = np.random.default_rng(3)
+    a, b = (torch.tensor(rng.standard_normal(s), dtype=torch.bfloat16)
+            for s in ((8, 8, 4, 128), (8, 8, 128, 4096)))
+    got = layers._dot_f32(a.to(cuda), b.to(cuda))
+    assert got.dtype == torch.float32 and got.shape == (8, 8, 4, 4096)
+    torch.testing.assert_close(got.cpu(), a.float() @ b.float(), atol=1e-4,
+                               rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_piecewise_draw_peak_memory_on_cuda(cuda, monkeypatch):
+    """A leaf above ``_INIT_PIECE`` values is drawn a run of leading rows
+    at a time into the preallocated leaf: the draw's peak is the bfloat16
+    leaf plus one float32 piece, where a whole draw would add the whole
+    leaf in float32."""
+    from repro_torch.models import params
+    monkeypatch.setattr(params, "_INIT_PIECE", 1 << 24)
+    spec = params.ParamSpec((64, 1 << 22), (None, None))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    leaf = params.init_params({"w": spec}, gen, cuda,
+                              dtype=torch.bfloat16)["w"]
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    leaf_bytes, piece_bytes = 2 * (64 << 22), 4 * (1 << 24)
+    assert leaf.dtype == torch.bfloat16 and leaf.shape == spec.shape
+    assert peak <= leaf_bytes + 2 * piece_bytes, (peak, leaf_bytes)
+    std = float(leaf.float().std())
+    assert abs(std * math.sqrt(64) - 1.0) < 0.01
+
