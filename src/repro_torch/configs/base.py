@@ -9,13 +9,15 @@ key.  The port builds the dense plan (``attn`` + ``dense``, sequential
 or, with ``parallel_block``, attention and MLP on one shared pre-norm),
 the Griffin hybrid plan (``rglru`` ×2 + ``local_attn``), the xLSTM plan
 (``mlstm`` ×(k−1) + ``slstm``, no MLP) and the MoE plan
-(``first_k_dense`` × (``attn``, ``dense``), then (``attn``, ``moe``));
-the encoder tower raises (ROADMAP Queue 1 item 11).
+(``first_k_dense`` × (``attn``, ``dense``), then (``attn``, ``moe``))
+and the encoder-decoder plan (Whisper: decoder blocks with
+``cross_attn``, and an ``encoder_plan`` of ``encoder_layers`` dense
+attention blocks).
 
 ``param_count`` and ``active_param_count`` are the reference's
-approximations (embeddings and the blocks' large matrices, no norms or
-biases), formula for formula; ``models.params.count_params`` counts a
-spec tree exactly.
+approximations (embeddings and the blocks' large matrices, the encoder
+tower and cross attention included, no norms or biases), formula for
+formula; ``models.params.count_params`` counts a spec tree exactly.
 
 The forecaster's mLSTM trunk reads ``d_model``, ``num_heads``,
 ``proj_factor`` and ``conv_width`` only.
@@ -95,8 +97,15 @@ class ArchConfig:
     d_rnn: int = 0                # RG-LRU width (0 -> d_model)
     rglru_pattern: int = 3        # 2 recurrent + 1 local attn per 3 layers
 
-    # encoder-decoder (not ported)
+    # encoder-decoder (whisper): the encoder reads ``encoder_seq``
+    # precomputed frame embeddings (the conv frontend is a stub)
     is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 1500
+
+    # vlm: ``vision_prefix_len`` precomputed patch embeddings ahead of
+    # the tokens (the vision tower is a stub)
+    vision_prefix_len: int = 0
 
     # kv_quant: an int8 KV cache with a float16 max-abs scale per (slot,
     # kv head, position) (repro_torch/models/layers.py quantize_kv).
@@ -131,17 +140,18 @@ class ArchConfig:
         return self.num_heads // self.num_kv_heads
 
     def param_count(self) -> int:
-        """Approximate parameter count (embeddings + blocks), the
-        reference's formula.  The encoder tower's and cross attention's
-        terms are not carried: the port's ``layer_plan`` raises for an
-        encoder-decoder."""
+        """Approximate parameter count (embeddings + blocks, the encoder
+        tower's among them), the reference's formula."""
         d, hd = self.d_model, self.head_dim_
         n_q, n_kv = self.num_heads, self.num_kv_heads
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
-        for seg in self.layer_plan():
+        for seg in (self.layer_plan() +
+                    (self.encoder_plan() if self.is_encoder_decoder else [])):
             for blk in seg.blocks * seg.repeats:
                 if blk.mixer in ("attn", "local_attn"):
                     total += d * hd * (n_q + 2 * n_kv) + n_q * hd * d
+                    if blk.cross_attn:
+                        total += d * hd * (n_q + 2 * n_kv) + n_q * hd * d
                 elif blk.mixer == "mlstm":
                     up = int(d * self.proj_factor)
                     total += 2 * d * up + 3 * up * up // max(n_q, 1) + up * d
@@ -174,19 +184,24 @@ class ArchConfig:
         """Decoder segments: the xLSTM pattern for ``ssm``, the Griffin
         pattern for ``hybrid``, the MoE pattern for a config with
         experts, one stacked segment of dense attention blocks
-        otherwise."""
-        if self.is_encoder_decoder:
-            raise NotImplementedError(
-                f"{self.name}: the encoder-decoder layer plan is "
-                f"{NOT_PORTED}")
+        otherwise (with cross attention in an encoder-decoder)."""
         if self.family == "ssm":
             return self._xlstm_plan()
         if self.family == "hybrid":
             return self._rglru_plan()
         if self.n_experts > 0:
             return self._moe_plan()
+        blocks = (BlockSpec("attn", "dense",
+                            cross_attn=self.is_encoder_decoder),)
+        return [Segment(blocks, repeats=self.num_layers)]
+
+    def encoder_plan(self) -> List[Segment]:
+        """The encoder tower of an encoder-decoder: ``encoder_layers``
+        dense attention blocks (run without a causal mask)."""
+        if not self.is_encoder_decoder:
+            raise ValueError(f"{self.name} has no encoder")
         return [Segment((BlockSpec("attn", "dense"),),
-                        repeats=self.num_layers)]
+                        repeats=self.encoder_layers)]
 
     def _moe_plan(self) -> List[Segment]:
         """``first_k_dense`` dense attention blocks, then MoE blocks."""
@@ -237,7 +252,7 @@ def get_config(name: str, *, tiny: bool = False) -> ArchConfig:
     import repro_torch.configs  # noqa: F401  (registers the configs)
     table = _TINY if tiny else _REGISTRY
     if name not in table:
-        raise KeyError(f"arch {name!r} is {NOT_PORTED}; the port has "
+        raise KeyError(f"unknown arch {name!r}; the port has "
                        f"{sorted(_REGISTRY)}")
     return table[name]
 

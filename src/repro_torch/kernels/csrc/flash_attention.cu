@@ -13,8 +13,11 @@
 // max(l, 1e-30).  Inputs float32 or bfloat16, contiguous; hd <= 256 and
 // any T and S (the Pallas kernel asks them to divide its blocks).  A
 // query that sees no key at all (a window that ends before the first
-// key; never under a causal mask with S >= T) gives 0, or the mean of
-// the v rows of the tiles it passed, as in the Pallas kernel.
+// key; never under a causal mask with S >= T, nor without a mask) gives
+// 0, or the mean of the v rows of the tiles it passed, as in the Pallas
+// kernel.  The models call it causal with S = T, and without a mask for
+// Whisper's encoder (T = S = 1500) and its cross attention at prefill
+// (the prompt's T against S = 1500).
 //
 // Bound: at the serving path's shape (B = 1, Hq = 16, Hkv = 1,
 // T = S = 3072, hd = 256, window 2048, bfloat16) the visible (i, j)

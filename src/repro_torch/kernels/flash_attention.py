@@ -13,8 +13,11 @@ against k, v (B, Hkv, S, hd), query head h reading kv head
 (causal) and ``j > i - window`` (window > 0) on global indices, hidden
 logits at ``NEG_INF = -2**30``, a float32 softmax and a weighted sum of
 v accumulated in float32, returned in q's dtype.  Any T and S; hd <= 256
-in the kernel.  Every query row must see at least one key (it does under
-a causal mask with ``S >= T``, the model's only call).
+in the kernel.  Every query row must see at least one key.  The models
+call it causal with ``S = T`` (every decoder's prefill and training),
+and without a mask in Whisper: its encoder (``T = S = 1500``) and its
+cross attention at prefill (the prompt's T against the encoder's
+``S = 1500``), where every row sees every key.
 
 The plain version keeps the softmax weights in float32, as the oracle
 does, and so does the kernel on float32 inputs.  On bfloat16 inputs the

@@ -6,9 +6,14 @@ The flags and the request stream of ``repro/launch/serve.py``: a
 inter-arrival times, printing latency and throughput — the service job
 the orchestrator deploys.  ``--arch`` chooses among the port's archs
 (the tiny twin by default, ``--full`` for the published widths, with
-random weights drawn from ``--seed`` in the serving dtypes).  It runs on
-the card; ``--device cpu`` asks for the plain PyTorch path on the CPU,
-and without a card and without that flag it raises.
+random weights drawn from ``--seed`` in the serving dtypes).  Whisper
+(``audio``) gets one set of ``audio_embeds`` (encoder_seq, d_model) and
+InternVL2 (``vlm``) one set of ``pixel_embeds`` (vision_prefix_len,
+d_model) for every request, drawn as the reference's CLI draws them;
+InternVL2's cache must hold the patches as well as the prompt
+(``--cache-len``).  It runs on the card; ``--device cpu`` asks for the
+plain PyTorch path on the CPU, and without a card and without that flag
+it raises.
 """
 from __future__ import annotations
 
@@ -25,6 +30,21 @@ from repro_torch.models.params import init_params
 from repro_torch.serve.engine import (EngineConfig, Request, ServeEngine,
                                       run_server)
 from repro_torch.serve.sampling import SamplingConfig
+
+
+def extra_inputs(cfg, seed: int = 0) -> Dict[str, np.ndarray]:
+    """The modality input of ``cfg``'s family (none for a text-only
+    arch), without a batch axis, as the reference's CLI draws it:
+    ``0.02 * default_rng(seed).standard_normal(...)`` in float32 (its
+    seed is 0)."""
+    if cfg.family == "vlm":
+        name, shape = "pixel_embeds", (cfg.vision_prefix_len, cfg.d_model)
+    elif cfg.family == "audio":
+        name, shape = "audio_embeds", (cfg.encoder_seq, cfg.d_model)
+    else:
+        return {}
+    return {name: 0.02 * np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32)}
 
 
 def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
@@ -53,7 +73,8 @@ def main(argv: Optional[List[str]] = None) -> Dict[str, float]:
                          dtype=tf.serving_dtype(cfg))
     engine = ServeEngine(cfg, params, EngineConfig(
         num_slots=args.slots, cache_len=args.cache_len,
-        sampling=SamplingConfig(temperature=args.temperature)), device=dev)
+        sampling=SamplingConfig(temperature=args.temperature)),
+        extra_inputs=extra_inputs(cfg), device=dev)
 
     rng = np.random.default_rng(args.seed)
     t = 0.0

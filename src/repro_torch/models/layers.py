@@ -1,5 +1,6 @@
 """Transformer layers, as ``repro/models/layers.py``: norms, RoPE, the
-MLP, attention and its KV cache.
+MLP, attention and its KV cache, cross attention and sinusoidal
+positions.
 
 Layout conventions (the reference's)
   activations: (B, T, D);  q/k/v: (B, T, H, head_dim)
@@ -23,11 +24,19 @@ so the real heads do not change.  The one-token decode attends over the
 cache in plain PyTorch, as the reference does with einsums, and does not
 pad.
 
+Cross attention (Whisper's decoder reading the encoder's output) takes
+the encoder's k, v in the reference's (B, S_enc, Kv, hd) layout
+(:func:`encode_cross_kv`).  A whole prompt (T > 1) reads them through
+the flash kernel without a causal mask; one decode token (T = 1) reads
+them in plain PyTorch, as the reference's ``_mha`` does, its float32
+softmax weights rounded to the activation dtype before the weighted sum.
+
 Not ported (raises ``NotImplementedError`` naming ROADMAP Queue 1 item
-11): logit soft-capping, and cross attention
-(``repro_torch/models/transformer.py``).
+11): logit soft-capping.
 """
 from __future__ import annotations
+
+import math
 
 from typing import Dict, Optional, Tuple
 
@@ -343,3 +352,85 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     out = out.reshape(B, 1, cfg.num_heads, hd)
     pos.add_(1)
     return _out_proj(out, p["w_o"]), cache
+
+
+# ----------------------------- cross attention ------------------------------- #
+
+def cross_attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
+    return attn_specs(cfg)
+
+
+def encode_cross_kv(p, enc_out: torch.Tensor, cfg: ArchConfig
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross attention's k, v from the encoder output (B, S, D):
+    each (B, S, Kv, hd) in the encoder output's dtype."""
+    dt = enc_out.dtype
+    k = _project(enc_out, p["w_k"])
+    v = _project(enc_out, p["w_v"])
+    if cfg.qkv_bias:
+        k = k + p["b_k"].to(dt)
+        v = v + p["b_v"].to(dt)
+    return k, v
+
+
+def cross_attention(p, x: torch.Tensor, cfg: ArchConfig,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]
+                    ) -> torch.Tensor:
+    """Decoder -> encoder attention over every encoder position (no
+    mask, no RoPE).  x: (B, T, D); ``enc_kv``: (B, S, Kv, hd) k and v.
+    Only q is projected (the reference also projects the decoder's k, v
+    and discards them).  T > 1 runs the flash kernel with ``causal=False``;
+    T = 1 (decode) is the reference's ``_mha`` in plain PyTorch: float32
+    logits and softmax, the weights rounded to the activation dtype, the
+    weighted sum over v in that dtype."""
+    check_ported(cfg)
+    dt = x.dtype
+    B, T, _ = x.shape
+    q = _project(x, p["w_q"])
+    if cfg.qkv_bias:
+        q = q + p["b_q"].to(dt)
+    q = q * (cfg.head_dim_ ** -0.5)
+    k, v = (t.to(dt) for t in enc_kv)
+    if T > 1:
+        out = attention_from_qkv(q, k, v, causal=False)
+    else:
+        Kv, G, hd = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_
+        qg = q.reshape(B, Kv, G, hd)
+        scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
+        w = torch.softmax(scores, dim=-1).to(dt)
+        out = torch.einsum("bkgs,bskh->bkgh", w, v).reshape(
+            B, 1, cfg.num_heads, hd)
+    return _out_proj(out, p["w_o"])
+
+
+# --------------------------------------------------------------------------- #
+# sinusoidal positions (whisper)
+# --------------------------------------------------------------------------- #
+
+def _sinusoid(pos: torch.Tensor, d: int, log_1e4, dtype) -> torch.Tensor:
+    """(N, d) [sin | cos] rows at the float32 positions ``pos`` (N,):
+    frequencies ``exp(-log_1e4 * i / (d/2 - 1))``, all in float32, then
+    cast to ``dtype``."""
+    half = d // 2
+    freqs = torch.exp(-log_1e4 * torch.arange(
+        half, dtype=torch.float32, device=pos.device) / (half - 1))
+    angles = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(angles), torch.cos(angles)], -1).to(dtype)
+
+
+def sinusoidal_embeddings(length: int, d: int, dtype=torch.float32,
+                          device=None) -> torch.Tensor:
+    """(length, d) table of positions 0..length-1, as the reference's
+    (``log(1e4)`` taken in double, then used as a float32 scalar)."""
+    return _sinusoid(torch.arange(length, dtype=torch.float32,
+                                  device=device), d, math.log(10_000.0),
+                     dtype)
+
+
+def sinusoid_at(pos: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    """(N, d) rows at the positions ``pos`` (N,), as the reference's
+    ``decode_step`` computes them inline: ``log(1e4)`` taken in
+    float32."""
+    log = torch.log(torch.tensor(10_000.0, dtype=torch.float32,
+                                 device=pos.device))
+    return _sinusoid(pos.reshape(-1).float(), d, log, dtype)

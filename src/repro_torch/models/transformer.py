@@ -32,9 +32,19 @@ does, without its aux; at decode T = 1, so each slot is its own group
 and no choice is dropped.  With ``kv_quant`` the prefill writes the
 int8 cache as the reference does, the reference's quirk included: a
 windowed layer whose prompt overruns its window gets its ring's
-payload but not its scales (``apply_block_prefill``).  Cross attention
-and the modality stubs raise ``NotImplementedError`` naming ROADMAP
-Queue 1 item 11.
+payload but not its scales (``apply_block_prefill``).
+
+Whisper adds an encoder tower (``params["encoder"]``: its segments and
+final norm) over ``batch["audio_embeds"]`` plus sinusoidal positions,
+run without a causal mask; each decoder block then attends to its
+output (``cross_attn``: ``norm_cross`` and ``cross`` after the mixer's
+residual, before the MLP).  Prefill keeps each block's cross k, v in
+the decode state (``cross_k``, ``cross_v``: (B, encoder_seq, Kv, hd)),
+and decode reads them unchanged.  Without RoPE the token embeddings get
+sinusoidal positions: the table in a full sequence, and at decode the
+inline sinusoid at each slot's position before the step.  InternVL2
+puts ``batch["pixel_embeds"]`` ahead of the tokens; the causal mask and
+RoPE positions cover them.
 """
 from __future__ import annotations
 
@@ -117,9 +127,6 @@ def _check_block(blk: BlockSpec, cfg: ArchConfig) -> None:
         raise NotImplementedError(f"mixer {blk.mixer!r} is {NOT_PORTED}")
     if blk.mlp not in ("dense", "moe", "none"):
         raise NotImplementedError(f"mlp {blk.mlp!r} is {NOT_PORTED}")
-    if blk.cross_attn:
-        raise NotImplementedError(f"{cfg.name}: cross attention is "
-                                  f"{NOT_PORTED}")
 
 
 def _parallel(blk: BlockSpec, cfg: ArchConfig) -> bool:
@@ -137,6 +144,9 @@ def _block_specs(blk: BlockSpec, cfg: ArchConfig) -> Dict[str, Any]:
     rec = _RECURRENT.get(blk.mixer)
     mixer = rec.specs(cfg) if rec else layers.attn_specs(cfg)
     specs = {"norm1": layers.norm_specs(cfg), "mixer": mixer}
+    if blk.cross_attn:
+        specs.update(norm_cross=layers.norm_specs(cfg),
+                     cross=layers.cross_attn_specs(cfg))
     if blk.mlp == "dense":
         ff = cfg.dense_d_ff if cfg.n_experts > 0 and cfg.dense_d_ff else None
         if not _parallel(blk, cfg):
@@ -167,6 +177,11 @@ def model_specs(cfg: ArchConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((d, vp), ("embed", "vocab"))
+    if cfg.is_encoder_decoder:
+        specs["encoder"] = {
+            "segments": _tower_specs(cfg.encoder_plan(), cfg),
+            "final_norm": layers.norm_specs(cfg),
+        }
     return specs
 
 
@@ -178,26 +193,43 @@ def _window(blk: BlockSpec, cfg: ArchConfig) -> int:
     return cfg.sliding_window if blk.mixer == "local_attn" else 0
 
 
-def _finish_block(blk: BlockSpec, p, x, h, mix, cfg: ArchConfig):
-    """The residual add of the mixer, then the MLP's: (x, routing), the
-    MoE layer's routing or None.  ``h`` is the block's pre-norm, which a
-    parallel block's MLP reads (``x + mix + mlp(h)``, added in that
-    order, as the reference does)."""
+def _finish_block(blk: BlockSpec, p, x, h, mix, cfg: ArchConfig,
+                  cross=None):
+    """The residual add of the mixer, then cross attention over
+    ``cross`` (the encoder's k, v, for a ``cross_attn`` block), then the
+    MLP's: (x, routing), the MoE layer's routing or None.  ``h`` is the
+    block's pre-norm, which a parallel block's MLP reads (``x + mix +
+    mlp(h)``, added in that order, as the reference does)."""
     x = x + mix
+    if _parallel(blk, cfg):
+        return x + layers.apply_mlp(p["mlp"], h, cfg), None
+    if blk.cross_attn:
+        hc = layers.apply_norm(p["norm_cross"], x, cfg)
+        x = x + layers.cross_attention(p["cross"], hc, cfg, cross)
     if blk.mlp == "none":
         return x, None
-    if not _parallel(blk, cfg):
-        h = layers.apply_norm(p["norm2"], x, cfg)
+    h = layers.apply_norm(p["norm2"], x, cfg)
     if blk.mlp == "moe":
         y, r = moe.apply_moe(p["mlp"], h, cfg)
         return x + y, r
     return x + layers.apply_mlp(p["mlp"], h, cfg), None
 
 
+def _cross_kv(blk: BlockSpec, p, enc_out, cfg: ArchConfig):
+    """A ``cross_attn`` block's k, v over the encoder output, else
+    None."""
+    if not blk.cross_attn:
+        return None
+    if enc_out is None:
+        raise ValueError("a cross-attention block needs the encoder's "
+                         "output (batch['audio_embeds'])")
+    return layers.encode_cross_kv(p["cross"], enc_out, cfg)
+
+
 def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
-                causal: bool = True):
-    """Training forward of one block: (x, aux), aux the MoE layer's
-    load-balancing loss or None."""
+                causal: bool = True, enc_out=None):
+    """Training (or encoder) forward of one block: (x, aux), aux the MoE
+    layer's load-balancing loss or None."""
     _check_block(blk, cfg)
     h = layers.apply_norm(p["norm1"], x, cfg)
     if blk.mixer in _RECURRENT:
@@ -206,45 +238,71 @@ def apply_block(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
         mix = layers.attention(p["mixer"], h, cfg, positions=positions,
                                causal=causal, window=_window(blk, cfg),
                                use_rope=cfg.use_rope)
-    x, r = _finish_block(blk, p, x, h, mix, cfg)
+    x, r = _finish_block(blk, p, x, h, mix, cfg,
+                         _cross_kv(blk, p, enc_out, cfg))
     return x, None if r is None else moe.aux_loss(r, cfg)
+
+
+# A cross-attention block's decode-state keys: the encoder's k, v.
+CROSS_KEYS = ("cross_k", "cross_v")
 
 
 def init_block_state(blk: BlockSpec, cfg: ArchConfig, batch: int,
                      cache_len: int, dtype=torch.bfloat16,
                      device=None) -> Dict:
-    """A block's zero decode state.  ``dtype`` is the KV caches'; the
-    recurrent states (RG-LRU, mLSTM, sLSTM) are float32 whatever it is,
-    as the reference's."""
+    """A block's zero decode state.  ``dtype`` is the KV caches' (and
+    the cross k, v's); the recurrent states (RG-LRU, mLSTM, sLSTM) are
+    float32 whatever it is, as the reference's."""
     _check_block(blk, cfg)
     if blk.mixer in _RECURRENT:
-        return _RECURRENT[blk.mixer].decode_init(cfg, batch, device=device)
-    return layers.init_kv_cache(cfg, batch, cache_len,
-                                window=_window(blk, cfg), dtype=dtype,
-                                device=device)
-
+        st = _RECURRENT[blk.mixer].decode_init(cfg, batch, device=device)
+    else:
+        st = layers.init_kv_cache(cfg, batch, cache_len,
+                                  window=_window(blk, cfg), dtype=dtype,
+                                  device=device)
+    if blk.cross_attn:
+        shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim_)
+        for name in CROSS_KEYS:
+            st[name] = torch.zeros(shape, dtype=dtype, device=device)
+    return st
 
 _rglru_prefill = rglru.rglru_prefill
 
 
 def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
-                        cache_len: int) -> Tuple[torch.Tensor, Dict]:
+                        cache_len: int, enc_out=None
+                        ) -> Tuple[torch.Tensor, Dict]:
     """Forward + decode-state extraction (serving prefill).  The k, v that
     fill the cache are the ones the attention reads, the mLSTM's conv
     tail the ``up`` its cell read, and the sLSTM's state comes from the
     walk that gave its output (the reference computes each twice, to the
-    same values)."""
+    same values).  A cross-attention block keeps the encoder's k, v in
+    the activation dtype."""
     _check_block(blk, cfg)
     B, S, _ = x.shape
     h = layers.apply_norm(p["norm1"], x, cfg)
+    cross = _cross_kv(blk, p, enc_out, cfg)
     if blk.mixer in _RECURRENT:
         mix, state = _RECURRENT[blk.mixer].prefill(p["mixer"], h, cfg)
-        return _finish_block(blk, p, x, h, mix, cfg)[0], state
+    else:
+        mix, state = _attention_prefill(blk, p["mixer"], h, cfg, positions,
+                                        cache_len)
+    if cross is not None:
+        state = dict(state)
+        for name, val in zip(CROSS_KEYS, cross):
+            state[name] = val.to(x.dtype)
+    return _finish_block(blk, p, x, h, mix, cfg, cross)[0], state
+
+
+def _attention_prefill(blk: BlockSpec, p, h, cfg: ArchConfig, positions,
+                       cache_len: int) -> Tuple[torch.Tensor, Dict]:
+    """The attention mixer over a prompt: (its output, the filled KV
+    cache)."""
+    B, S, _ = h.shape
     window = _window(blk, cfg)
-    q, k, v = layers._project_qkv(p["mixer"], h, cfg, positions,
-                                  cfg.use_rope)
+    q, k, v = layers._project_qkv(p, h, cfg, positions, cfg.use_rope)
     state = layers.init_kv_cache(cfg, B, cache_len, window=window,
-                                 dtype=x.dtype, device=x.device)
+                                 dtype=h.dtype, device=h.device)
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)    # (B, Kv, S, hd)
     scales = {}
     if cfg.kv_quant:
@@ -271,21 +329,25 @@ def apply_block_prefill(blk: BlockSpec, p, x, cfg: ArchConfig, *, positions,
     state["pos"].fill_(S)
     out = layers.attention_from_qkv(q, k, v, causal=True, window=window,
                                     pad_heads_to=cfg.pad_heads_to)
-    mix = layers._out_proj(out, p["mixer"]["w_o"])
-    return _finish_block(blk, p, x, h, mix, cfg)[0], state
+    return layers._out_proj(out, p["w_o"]), state
 
 
 def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
                        ) -> Tuple[torch.Tensor, Dict]:
+    """One token through a block.  A cross-attention block reads its
+    ``cross_k``, ``cross_v`` and returns them unchanged."""
     _check_block(blk, cfg)
     h = layers.apply_norm(p["norm1"], x, cfg)
+    cross = {k: state[k] for k in CROSS_KEYS if k in state}
+    core = {k: v for k, v in state.items() if k not in cross}
     if blk.mixer in _RECURRENT:
-        mix, state = _RECURRENT[blk.mixer].decode(p["mixer"], h, cfg, state)
+        mix, core = _RECURRENT[blk.mixer].decode(p["mixer"], h, cfg, core)
     else:
-        mix, state = layers.decode_attention(p["mixer"], h, cfg, state,
-                                             window=_window(blk, cfg),
-                                             use_rope=cfg.use_rope)
-    return _finish_block(blk, p, x, h, mix, cfg)[0], state
+        mix, core = layers.decode_attention(p["mixer"], h, cfg, core,
+                                            window=_window(blk, cfg),
+                                            use_rope=cfg.use_rope)
+    kv = (cross["cross_k"], cross["cross_v"]) if cross else None
+    return _finish_block(blk, p, x, h, mix, cfg, kv)[0], {**core, **cross}
 
 
 # --------------------------------------------------------------------------- #
@@ -304,18 +366,20 @@ def _segment_layers(seg: Segment, seg_p):
 
 
 def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
-                     causal: bool = True, remat: bool = True
+                     causal: bool = True, remat: bool = True, enc_out=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The decoder tower over a whole sequence: (x, aux), aux summed over
-    the MoE layers in order, as the reference sums its superblocks'.
-    With ``remat`` and grad enabled each superblock is checkpointed."""
+    """A tower (the decoder's, or the encoder's with ``causal=False``)
+    over a whole sequence: (x, aux), aux summed over the MoE layers in
+    order, as the reference sums its superblocks'.  With ``remat`` and
+    grad enabled each superblock is checkpointed."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_p in zip(plan, segments_p):
         def superblock(xx, layer_p, seg=seg):
             ax = torch.zeros((), dtype=torch.float32, device=xx.device)
             for j, blk in enumerate(seg.blocks):
                 xx, a = apply_block(blk, layer_p[f"block{j}"], xx, cfg,
-                                    positions=positions, causal=causal)
+                                    positions=positions, causal=causal,
+                                    enc_out=enc_out)
                 if a is not None:
                     ax = ax + a
             return xx, ax
@@ -338,7 +402,8 @@ def _stack(trees: List):
     return torch.stack(trees)
 
 
-def _run_tower_prefill(segments_p, plan, x, cfg, positions, cache_len):
+def _run_tower_prefill(segments_p, plan, x, cfg, positions, cache_len,
+                       enc_out=None):
     states: List[Any] = []
     for seg, seg_p in zip(plan, segments_p):
         reps = []
@@ -347,7 +412,7 @@ def _run_tower_prefill(segments_p, plan, x, cfg, positions, cache_len):
             for j, blk in enumerate(seg.blocks):
                 x, sts[f"block{j}"] = apply_block_prefill(
                     blk, layer_p[f"block{j}"], x, cfg, positions=positions,
-                    cache_len=cache_len)
+                    cache_len=cache_len, enc_out=enc_out)
             reps.append(sts)
         states.append(_stack(reps) if seg.repeats > 1 else reps[0])
     return x, states
@@ -377,15 +442,60 @@ def _run_tower_decode(segments_p, plan, x, cfg, states):
 # entry points
 # --------------------------------------------------------------------------- #
 
-def _embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
-    if not cfg.use_rope or cfg.family in ("vlm", "audio"):
-        raise NotImplementedError(f"{cfg.name}: absolute positions and "
-                                  f"modality inputs are {NOT_PORTED}")
+def _embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
     dt = getattr(torch, cfg.dtype)
-    x = params["embed"][batch["tokens"]].to(dt)
+    return params["embed"][tokens].to(dt)
+
+
+def _embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
+    """A full sequence's inputs, in the reference's order: the token
+    embeddings, the patch embeddings ahead of them (vlm), the gemma
+    scale (hybrid), the sinusoidal positions (without RoPE)."""
+    dt = getattr(torch, cfg.dtype)
+    x = _embed_tokens(params, batch["tokens"], cfg)
+    if cfg.family == "vlm" and "pixel_embeds" in batch:
+        x = torch.cat([batch["pixel_embeds"].to(dt), x], dim=1)
     if cfg.family == "hybrid":
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)  # gemma scale
+    if not cfg.use_rope:
+        x = x + layers.sinusoidal_embeddings(x.shape[1], cfg.d_model, dt,
+                                             x.device)[None]
     return x
+
+
+def _cache_pos(states: List) -> torch.Tensor:
+    """The decode positions, read off the first attention cache before
+    the step, as the reference's ``_cache_pos``: the first layer's (B,)
+    positions of a stacked cache; of an unstacked one, its first slot's
+    position as one (1,) row for every slot (the reference's reading)."""
+    for seg_states in states:
+        for st in seg_states.values():
+            if "pos" in st:
+                p = st["pos"]
+                return p[0] if p.dim() > 1 else p[:1]
+    raise ValueError("no attention cache in the decode state")
+
+
+def _encode(params, batch: Dict, cfg: ArchConfig,
+            remat: bool = True) -> torch.Tensor:
+    """The encoder over the frame embeddings ``batch["audio_embeds"]``
+    (B, S_enc, D) plus sinusoidal positions, without a causal mask, then
+    its final norm."""
+    dt = getattr(torch, cfg.dtype)
+    frames = batch["audio_embeds"].to(dt)
+    B, S, _ = frames.shape
+    x = frames + layers.sinusoidal_embeddings(S, cfg.d_model, dt,
+                                              frames.device)[None]
+    enc = params["encoder"]
+    x, _ = _run_tower_train(enc["segments"], cfg.encoder_plan(), x, cfg,
+                            _positions(B, S, x.device), causal=False,
+                            remat=remat)
+    return layers.apply_norm(enc["final_norm"], x, cfg)
+
+
+def _encoder_output(params, batch: Dict, cfg: ArchConfig, remat: bool):
+    return _encode(params, batch, cfg, remat) if cfg.is_encoder_decoder \
+        else None
 
 
 def _lm_logits(params, x, cfg: ArchConfig) -> torch.Tensor:
@@ -408,7 +518,9 @@ def forward_hidden(params, batch: Dict, cfg: ArchConfig, *,
     x = _embed_inputs(params, batch, cfg)
     B, T, _ = x.shape
     x, aux = _run_tower_train(params["segments"], cfg.layer_plan(), x, cfg,
-                              _positions(B, T, x.device), remat=remat)
+                              _positions(B, T, x.device), remat=remat,
+                              enc_out=_encoder_output(params, batch, cfg,
+                                                      remat))
     return layers.apply_norm(params["final_norm"], x, cfg), aux
 
 
@@ -425,7 +537,9 @@ def forward_train(params, batch: Dict, cfg: ArchConfig, *,
     x = _embed_inputs(params, batch, cfg)
     B, T, _ = x.shape
     x, aux = _run_tower_train(params["segments"], cfg.layer_plan(), x, cfg,
-                              _positions(B, T, x.device), remat=remat)
+                              _positions(B, T, x.device), remat=remat,
+                              enc_out=_encoder_output(params, batch, cfg,
+                                                      remat))
     return _lm_logits(params, x, cfg), aux
 
 
@@ -451,15 +565,25 @@ def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int
     Returns (last-position logits (B, Vp), states)."""
     x = _embed_inputs(params, batch, cfg)
     B, T, _ = x.shape
-    x, states = _run_tower_prefill(params["segments"], cfg.layer_plan(), x,
-                                   cfg, _positions(B, T, x.device), cache_len)
+    x, states = _run_tower_prefill(
+        params["segments"], cfg.layer_plan(), x, cfg,
+        _positions(B, T, x.device), cache_len,
+        enc_out=_encoder_output(params, batch, cfg, remat=False))
     return _lm_logits(params, x[:, -1:], cfg)[:, 0], states
 
 
 def decode_step(params, tokens: torch.Tensor, states: List, cfg: ArchConfig
                 ) -> Tuple[torch.Tensor, List]:
-    """tokens: (B, 1) -> (logits (B, Vp), states updated in place)."""
-    x = _embed_inputs(params, {"tokens": tokens}, cfg)
+    """tokens: (B, 1) -> (logits (B, Vp), states updated in place).
+    Without RoPE each slot's token gets the sinusoid at its cache
+    position before the step."""
+    dt = getattr(torch, cfg.dtype)
+    x = _embed_tokens(params, tokens, cfg)
+    if cfg.family == "hybrid":
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)  # gemma scale
+    if not cfg.use_rope:
+        x = x + layers.sinusoid_at(_cache_pos(states), cfg.d_model,
+                                   dt)[:, None, :]
     x, states = _run_tower_decode(params["segments"], cfg.layer_plan(), x,
                                   cfg, states)
     return _lm_logits(params, x, cfg)[:, 0], states

@@ -10,7 +10,11 @@ LLM endpoint).  Design, as the reference's:
   batched decode state (continuous batching at slot granularity);
 * per-example cache positions, so slots at different depths coexist in
   one decode step;
-* ``snapshot()`` / ``restore()``: the moveable-service contract.
+* ``snapshot()`` / ``restore()``: the moveable-service contract;
+* ``extra_inputs``: modality inputs every request's prefill reads
+  (``audio_embeds`` (encoder_seq, D) for Whisper, ``pixel_embeds``
+  (P, D) for InternVL2), each given once without a batch axis and kept
+  on the engine's device as a (1, ...) tensor.
 
 The engine runs eagerly (no ``jit``): a decode step is ``decode_step``
 on the card, the sample, and one read of the new tokens to the host.
@@ -57,12 +61,15 @@ class EngineConfig:
 
 class ServeEngine:
     def __init__(self, cfg: ArchConfig, params, ecfg: EngineConfig,
+                 extra_inputs: Optional[Dict[str, Any]] = None,
                  clock: Callable[[], float] = time.time, device=None):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
         self.clock = clock
         self.device = resolve_device(device)
+        self.extra = {k: torch.as_tensor(np.asarray(v))[None].to(self.device)
+                      for k, v in (extra_inputs or {}).items()}
         B = ecfg.num_slots
         self.states = tf.init_decode_state(cfg, B, ecfg.cache_len,
                                            dtype=getattr(torch, cfg.dtype),
@@ -94,7 +101,8 @@ class ServeEngine:
         slot = free[0]
         tokens = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64,
                                  device=self.device)[None, :]
-        logits, row_states = tf.prefill(self.params, {"tokens": tokens},
+        logits, row_states = tf.prefill(self.params,
+                                        {"tokens": tokens, **self.extra},
                                         self.cfg, self.ecfg.cache_len)
         first = int(torch.argmax(logits[0, :self.cfg.vocab_size].float()))
         self._insert_slot(slot, row_states, first)

@@ -13,18 +13,31 @@
 * ``tests/data/torch_dense_serve_golden/expected.npz`` (:data:`DENSE`):
   a float32 twin at Command-R-35B's widths (d_model 8192, 64 query heads
   over 8 kv heads of 128, d_ff 22528, LayerNorm, parallel blocks, tied
-  embeddings, RoPE theta 8e6) cut to 2 layers, a 512-token prefill.
+  embeddings, RoPE theta 8e6) cut to 2 layers, a 512-token prefill;
+* ``tests/data/torch_whisper_serve_golden/expected.npz``
+  (:data:`WHISPER`): a float32 twin at Whisper-medium's widths (d_model
+  1024, 16 heads of 64, d_ff 4096, LayerNorm, GeLU, biases, tied
+  embeddings, sinusoidal positions) cut to 2 encoder + 2 decoder layers,
+  the encoder over all 1500 frames, a 64-token prefill;
+* ``tests/data/torch_vlm_serve_golden/expected.npz`` (:data:`VLM`): a
+  float32 twin at InternVL2-26B's widths (d_model 6144, 48 query heads
+  over 8 kv heads of 128, d_ff 16384) cut to 2 layers, its vision prefix
+  cut from 1024 to 256 patches (a length cut, so that the CPU replay
+  fits its time), a 32-token prefill after the patches.
 
 Each has a vocab of :data:`VOCAB` and parameters drawn by
-``numpy_params(model_specs(cfg), seed)``.  A fixture holds the seed and
-the parameters' digest (not the parameters), JAX's logits for the
-prefill and 8 decode steps of 2 sequences, and a JAX ``ServeEngine``
-run's greedy tokens, stamps and metrics on a virtual clock; the MoE
-fixture also holds JAX's chosen experts in each MoE layer of the
-prefill and the decode steps.
+``numpy_params(model_specs(cfg), seed)``; the Whisper and InternVL2
+fixtures also draw their modality input (:func:`extra_inputs`) from the
+seed, and hold its digest, and every prefill of the fixture reads it. A
+fixture holds the seed and the parameters' digest (not the parameters),
+JAX's logits for the prefill and 8 decode steps of 2 sequences, and a
+JAX ``ServeEngine`` run's greedy tokens, stamps and metrics on a virtual
+clock; the MoE fixture also holds JAX's chosen experts in each MoE layer
+of the prefill and the decode steps.
 
-``tests/test_torch_xlstm.py``, ``tests/test_torch_moe.py`` and
-``tests/test_torch_dense.py`` build them with the JAX package from these
+``tests/test_torch_xlstm.py``, ``tests/test_torch_moe.py``,
+``tests/test_torch_dense.py``, ``tests/test_torch_whisper.py`` and
+``tests/test_torch_vlm.py`` build them with the JAX package from these
 helpers; the CPU tests, the card tests and ``chip_smoke.py`` replay them
 through :func:`replay` and compare with :data:`TOL`.  The MoE fixture's
 callers read the port's chosen experts by wrapping ``moe.route`` around
@@ -33,14 +46,16 @@ the replay and compare them with :func:`routing_report`.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.launch import serve as serve_cli
 from repro_torch.models import transformer as tf
-from repro_torch.models.params import numpy_params, numpy_params_on
+from repro_torch.models.params import (numpy_params, numpy_params_on,
+                                       tree_digest)
 from repro_torch.serve import engine as serve
 
 METRIC_KEYS = ("elapsed_s", "mean_ttft_s", "requests", "tokens",
@@ -66,6 +81,7 @@ class Fixture:
     slots: int
     cache_len: int
     seed: int = 0
+    overrides: Tuple[Tuple[str, Any], ...] = ()
 
 
 XLSTM = Fixture("xlstm-125m", layers=8, prefill=128, decode=8,
@@ -77,6 +93,14 @@ MOE = Fixture("deepseek-moe-16b", layers=3, prefill=1024, decode=8,
 DENSE = Fixture("command-r-35b", layers=2, prefill=512, decode=8,
                 requests=((12, 5, 0.0), (300, 4, 0.0), (7, 6, 1.0)),
                 slots=2, cache_len=528)
+WHISPER = Fixture("whisper-medium", layers=2, prefill=64, decode=8,
+                  requests=((12, 5, 0.0), (64, 4, 0.0), (7, 6, 1.0)),
+                  slots=2, cache_len=80,
+                  overrides=(("encoder_layers", 2),))
+VLM = Fixture("internvl2-26b", layers=2, prefill=32, decode=8,
+              requests=((12, 5, 0.0), (32, 4, 0.0), (7, 6, 1.0)),
+              slots=2, cache_len=304,
+              overrides=(("vision_prefix_len", 256),))
 
 
 def config(fixture: Fixture, cfg=None):
@@ -84,7 +108,14 @@ def config(fixture: Fixture, cfg=None):
     by default)."""
     cfg = get_config(fixture.arch) if cfg is None else cfg
     return dataclasses.replace(cfg, num_layers=fixture.layers,
-                               vocab_size=VOCAB, dtype="float32")
+                               vocab_size=VOCAB, dtype="float32",
+                               **dict(fixture.overrides))
+
+
+def extra_inputs(fixture: Fixture) -> Dict[str, np.ndarray]:
+    """The fixture's modality input (none for a text-only arch), drawn as
+    the serve CLI draws it but from ``seed + 3``."""
+    return serve_cli.extra_inputs(config(fixture), fixture.seed + 3)
 
 
 def parameters(fixture: Fixture) -> Dict:
@@ -106,13 +137,15 @@ def inputs(fixture: Fixture) -> Tuple[np.ndarray, List[np.ndarray]]:
 
 
 def logits(fixture: Fixture, prefill: Callable, decode_step: Callable,
-           params, cfg, tokens: np.ndarray, wrap: Callable) -> List:
-    """Prefill ``fixture.prefill`` tokens, then ``fixture.decode`` steps:
-    the logit rows, through either package's ``prefill`` /
-    ``decode_step``."""
+           params, cfg, tokens: np.ndarray, wrap: Callable,
+           extra: Optional[Dict] = None) -> List:
+    """Prefill ``fixture.prefill`` tokens (and ``extra``, the modality
+    inputs with their batch axis, in either package's arrays), then
+    ``fixture.decode`` steps: the logit rows, through either package's
+    ``prefill`` / ``decode_step``."""
     P = fixture.prefill
-    lg, st = prefill(params, {"tokens": wrap(tokens[:, :P])}, cfg,
-                     fixture.cache_len)
+    lg, st = prefill(params, {"tokens": wrap(tokens[:, :P]),
+                              **(extra or {})}, cfg, fixture.cache_len)
     out = [lg]
     for i in range(P, P + fixture.decode):
         lg, st = decode_step(params, wrap(tokens[:, i:i + 1]), st, cfg)
@@ -165,15 +198,19 @@ def routing_report(fixture: Fixture, fx: Dict[str, np.ndarray],
 
 def replay(fixture: Fixture, fx: Dict[str, np.ndarray], device) -> Dict:
     """The port on ``device`` against the fixture ``fx``: the parameters'
-    digest, the logits' largest error and worst share of :data:`TOL`
-    (at most 1 where they agree), and whether the engine's tokens,
-    stamps and metrics equal JAX's."""
+    digest (and the modality input's), the logits' largest error and
+    worst share of :data:`TOL` (at most 1 where they agree), and whether
+    the engine's tokens, stamps and metrics equal JAX's."""
     cfg = config(fixture)
     params, digest = numpy_params_on(tf.model_specs(cfg), int(fx["seed"]),
                                      device, dtype=tf.serving_dtype(cfg))
-    digest_ok = digest == str(fx["params_digest"])
+    extra = extra_inputs(fixture)
+    digest_ok = digest == str(fx["params_digest"]) and (
+        not extra or tree_digest(extra) == str(fx["extra_digest"]))
     got = logits(fixture, tf.prefill, tf.decode_step, params, cfg,
-                 fx["tokens"], lambda a: torch.from_numpy(a).long().to(device))
+                 fx["tokens"], lambda a: torch.from_numpy(a).long().to(device),
+                 {k: torch.from_numpy(np.repeat(v[None], 2, 0)).to(device)
+                  for k, v in extra.items()})
     errs, shares = [], []
     for g, w in zip(got, [fx["prefill_logits"], *fx["decode_logits"]]):
         g = g.float().cpu().numpy()
@@ -185,8 +222,8 @@ def replay(fixture: Fixture, fx: Dict[str, np.ndarray], device) -> Dict:
     prompts = np.split(fx["engine_prompts"], splits)
     clock, sleep = virtual_clock()
     eng = serve.ServeEngine(cfg, params, serve.EngineConfig(
-        num_slots=fixture.slots, cache_len=fixture.cache_len), clock=clock,
-        device=device)
+        num_slots=fixture.slots, cache_len=fixture.cache_len),
+        extra_inputs=extra, clock=clock, device=device)
     reqs = requests(fixture, serve, prompts)
     metrics = serve.run_server(eng, reqs, log=lambda s: None, clock=clock,
                                sleep=sleep)

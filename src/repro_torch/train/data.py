@@ -6,8 +6,10 @@ reference's for the same config, seed, step and host).
 dataset's "checkpointed" state is the step counter and a resumed trainer
 sees the batches an uninterrupted one would.  The token stream is a fixed
 periodic pattern per seed, seen through per-step noise and a per-row
-phase, so a small model's loss falls.  The modality stubs of the vlm and
-audio families are not ported (ROADMAP Queue 1 item 11).
+phase, so a small model's loss falls.  The vlm family's batches also
+carry ``pixel_embeds`` (..., vision_prefix_len, d_model) and the audio
+family's ``audio_embeds`` (..., encoder_seq, d_model), drawn from the
+same generator after the tokens, as the reference draws them.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Dict, Iterator
 
 import numpy as np
 
-from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.configs.base import ArchConfig
 
 
 @dataclasses.dataclass
@@ -33,9 +35,6 @@ class SyntheticLM:
 
     def __init__(self, cfg: ArchConfig, data_cfg: DataConfig,
                  host_id: int = 0, num_hosts: int = 1):
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(f"{cfg.name}: modality inputs are "
-                                      f"{NOT_PORTED}")
         self.cfg = cfg
         self.dc = data_cfg
         self.host_id = host_id
@@ -57,9 +56,17 @@ class SyntheticLM:
         noise = rng.integers(0, cfg.vocab_size, size=shape)
         noisy = rng.random(shape) < 0.1
         tokens = np.where(noisy, noise, stream).astype(np.int32)
-        return {"tokens": tokens[..., :-1],
-                "labels": tokens[..., 1:],
-                "loss_mask": np.ones(shape[:-1] + (dc.seq_len,), np.float32)}
+        out = {"tokens": tokens[..., :-1],
+               "labels": tokens[..., 1:],
+               "loss_mask": np.ones(shape[:-1] + (dc.seq_len,), np.float32)}
+        if cfg.family == "vlm":
+            out["pixel_embeds"] = 0.02 * rng.standard_normal(
+                shape[:-1] + (cfg.vision_prefix_len, cfg.d_model)
+            ).astype(np.float32)
+        if cfg.family == "audio":
+            out["audio_embeds"] = 0.02 * rng.standard_normal(
+                shape[:-1] + (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+        return out
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         step = 0

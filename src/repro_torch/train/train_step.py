@@ -10,6 +10,8 @@ and ``metrics`` holds the reference's float32 scalars: ``loss``,
 
 * With ``cfg.ce_chunk`` the loss is the fused chunked LM head +
   cross-entropy over the final hidden state (no full logits).
+* For the vlm family the first ``vision_prefix_len`` positions (the
+  patches) are dropped before the loss, on either path.
 * ``remat`` checkpoints each superblock (``transformer._run_tower_train``).
 * With ``accum > 1`` every batch leaf carries a leading (accum,) axis;
   each microbatch runs its own forward and backward, and a hook on each
@@ -60,11 +62,15 @@ def _loss_fn(params, batch: Dict, cfg: ArchConfig, remat: bool
     mask = batch.get("loss_mask")
     if cfg.ce_chunk:
         x, aux = tf.forward_hidden(params, batch, cfg, remat=remat)
+        if cfg.family == "vlm":
+            x = x[:, cfg.vision_prefix_len:]
         loss, metrics = losses.chunked_ce(
             x, tf.head_weights(params, cfg), labels, mask,
             vocab_size=cfg.vocab_size, chunk=cfg.ce_chunk)
     else:
         logits, aux = tf.forward_train(params, batch, cfg, remat=remat)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.vision_prefix_len:]
         loss, metrics = losses.cross_entropy(logits, labels, mask,
                                              vocab_size=cfg.vocab_size)
     total = loss + aux

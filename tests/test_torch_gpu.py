@@ -1,6 +1,6 @@
 """PyTorch port on the card: the CUDA kernels, the lane engine, the
-forecaster, the RecurrentGemma, xLSTM and MoE serving paths and the
-training path on CUDA.
+forecaster, the RecurrentGemma, xLSTM, MoE, dense, Whisper and
+InternVL2 serving paths and the training path on CUDA.
 
 Every test here is marked ``gpu`` and skips itself without a CUDA card
 (the kernels have no CPU mode).  On the card::
@@ -585,6 +585,18 @@ FLASH_CASES = (
     (1, 64, 8, 512, 512, 128, True, 0, "bfloat16"),
     (1, 64, 8, 512, 512, 128, True, 0, "float32"),
     (1, 48, 48, 512, 512, 128, True, 0, "bfloat16"),
+    # Whisper-medium: the encoder (non-causal, T = S = 1500, partial
+    # tiles), cross attention at prefill (non-causal, T != S), the
+    # decoder's causal self-attention; InternVL2-26B's prefill (GQA 48/8,
+    # 1024 patches + 64 tokens); each also in float32, the fixtures' dtype
+    (1, 16, 16, 1500, 1500, 64, False, 0, "bfloat16"),
+    (1, 16, 16, 4, 1500, 64, False, 0, "bfloat16"),
+    (1, 16, 16, 384, 1500, 64, False, 0, "bfloat16"),
+    (1, 16, 16, 384, 384, 64, True, 0, "bfloat16"),
+    (1, 48, 8, 1088, 1088, 128, True, 0, "bfloat16"),
+    (1, 16, 16, 1500, 1500, 64, False, 0, "float32"),
+    (1, 16, 16, 384, 1500, 64, False, 0, "float32"),
+    (1, 48, 8, 1088, 1088, 128, True, 0, "float32"),
 )
 # tests/test_kernels.py's tolerances for the Pallas kernel against its
 # oracle: float32 sums in another order, bfloat16 outputs rounded.
@@ -1086,3 +1098,28 @@ def test_piecewise_draw_peak_memory_on_cuda(cuda, monkeypatch):
     std = float(leaf.float().std())
     assert abs(std * math.sqrt(64) - 1.0) < 0.01
 
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["WHISPER", "VLM"])
+def test_modality_golden_fixture_on_cuda(cuda, name):
+    """The float32 Whisper-medium twin (2 + 2 layers, 1500 frames) and
+    InternVL2-26B twin (2 layers, 256 patches) of
+    ``tests/data/torch_{whisper,vlm}_serve_golden`` on the card: JAX's
+    logits within ``golden.TOL`` and its greedy engine tokens, stamps and
+    metrics exactly, flash launched for every full-sequence attention of
+    every prefill (Whisper: the encoder's, the decoder's and the cross
+    attention's; tests/test_torch_whisper.py and test_torch_vlm.py make
+    the fixtures)."""
+    from repro_torch.serve import golden
+    fixture = getattr(golden, name)
+    path = Path(__file__).resolve().parent / "data" / \
+        f"torch_{name.lower()}_serve_golden" / "expected.npz"
+    with np.load(path, allow_pickle=False) as z:
+        fx = {key: z[key] for key in z.files}
+    before = flash.launches
+    report = golden.replay(fixture, fx, cuda)
+    assert report["ok"], report
+    per_prefill = fixture.layers * (3 if name == "WHISPER" else 1)
+    prefills = 1 + len(fixture.requests)
+    assert flash.launches - before == per_prefill * prefills

@@ -137,6 +137,29 @@ def test_synthetic_batches_equal_reference(accum, seed):
             np.testing.assert_array_equal(a[k], b[k])
 
 
+@pytest.mark.parametrize("accum", [1, 2])
+@pytest.mark.parametrize("name,key", [("internvl2-26b", "pixel_embeds"),
+                                      ("whisper-medium", "audio_embeds")])
+def test_synthetic_modality_batches_equal_reference(name, key, accum):
+    """The vlm and audio families' batches: tokens, labels, mask and the
+    modality input (drawn after the tokens from the same generator)
+    ``==`` the reference's, bit for bit."""
+    rcfg, pcfg = ref_get_config(name, tiny=True), get_config(name, tiny=True)
+    dc = dict(batch_size=3, seq_len=40, accum=accum, seed=1)
+    ref = ref_data.SyntheticLM(rcfg, ref_data.DataConfig(**dc))
+    port = port_data.SyntheticLM(pcfg, port_data.DataConfig(**dc))
+    for step in (0, 5):
+        a, b = ref.batch(step), port.batch(step)
+        assert a.keys() == b.keys() and key in b
+        length = pcfg.vision_prefix_len if key == "pixel_embeds" else \
+            pcfg.encoder_seq
+        lead = (accum, 3) if accum > 1 else (3,)
+        assert b[key].shape == lead + (length, pcfg.d_model)
+        for k in a:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+
+
 @pytest.mark.parametrize("step", [0, 1, 7, 10, 55, 110, 200])
 def test_schedule_matches_reference(step):
     roc, poc = _opt_cfgs(learning_rate=3e-3, warmup_steps=10,
@@ -463,20 +486,31 @@ def test_trainer_without_card_raises():
 
 
 @pytest.mark.parametrize("name", ["xlstm-125m", "deepseek-moe-16b",
-                                  "command-r-35b", "qwen1.5-32b"])
+                                  "command-r-35b", "qwen1.5-32b",
+                                  "whisper-medium", "internvl2-26b"])
 def test_loss_and_every_gradient_match_jax(name):
     """``_loss_fn`` and its gradient on the float32 TINY twins of the
-    xLSTM, MoE and parallel-block / padded-head plans, against JAX's on
-    shared parameters: the loss (the MoE aux included) to ``rtol 1e-6``
+    xLSTM, MoE, parallel-block / padded-head, encoder-decoder and
+    vision-prefix plans (the last two with their modality input drawn
+    with numpy), against JAX's on shared parameters: the loss (the MoE aux included) to ``rtol 1e-6``
     (float32 sums in another order move its last digit: 0.5 to 3.5e-7
     seen), each gradient leaf within 1e-5 of that leaf's largest value
-    (4.7e-6 seen), and a leaf JAX leaves at zero zero."""
+    (4.7e-6 seen), and a leaf JAX leaves at zero zero; a key bias
+    without RoPE, whose gradient is zero analytically, below 1e-7 of the
+    tree's largest gradient in both."""
     ref_cfg = dataclasses.replace(ref_get_config(name, tiny=True),
                                   dtype="float32")
     cfg = dataclasses.replace(get_config(name, tiny=True), dtype="float32")
     tree = numpy_params(port_tf.model_specs(cfg), 4)
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 33))
     batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    rng = np.random.default_rng(6)
+    if cfg.family == "audio":
+        batch["audio_embeds"] = rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["pixel_embeds"] = rng.standard_normal(
+            (2, cfg.vision_prefix_len, cfg.d_model)).astype(np.float32)
     (jl, _), jg = jax.jit(jax.value_and_grad(
         lambda p, b: ref_ts._loss_fn(p, b, ref_cfg, False), has_aux=True))(
         jax.tree.map(jnp.asarray, tree),
@@ -489,8 +523,17 @@ def test_loss_and_every_gradient_match_jax(name):
     tl.backward()
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-6)
     want = dict(leaves_with_paths(jax.tree.map(np.asarray, jg)))
+    top = max(float(np.abs(w).max()) for w in want.values())
     for path, leaf in leaves_with_paths(params):
         got, w = leaf.grad.numpy(), want[path]
+        if path[-1] == "b_k" and not cfg.use_rope:
+            # Without RoPE a key bias adds q.b_k to every logit of a
+            # query's row, which the softmax cancels: its gradient is 0
+            # but for float32 rounding in both (Whisper: 1e-11 to 1.6e-10
+            # seen, the largest gradient 0.062), held below float32's
+            # epsilon of the largest gradient.
+            assert max(np.abs(got).max(), np.abs(w).max()) <= 1e-7 * top
+            continue
         assert np.abs(got - w).max() <= 1e-5 * np.abs(w).max(), path
 
 

@@ -126,12 +126,15 @@ def test_plan_without_slstm_and_unported_plans_raise():
     _, cfg = _configs(num_layers=6)
     (seg,) = cfg.layer_plan()
     assert seg.repeats == 6 and seg.blocks == (BlockSpec("mlstm", "none"),)
+    # the encoder-decoder plan is ported: cross attention in dense blocks
+    for family in ("audio", "dense"):
+        (enc_dec,) = dataclasses.replace(cfg, family=family,
+                                         is_encoder_decoder=True).layer_plan()
+        assert enc_dec.repeats == 6 and enc_dec.blocks == (
+            BlockSpec("attn", "dense", cross_attn=True),)
+    # a mixer the port does not run still raises naming the roadmap item
     with pytest.raises(NotImplementedError, match="item 11"):
-        dataclasses.replace(cfg, family="audio",
-                            is_encoder_decoder=True).layer_plan()
-    with pytest.raises(NotImplementedError, match="item 11"):
-        dataclasses.replace(cfg, family="dense",
-                            is_encoder_decoder=True).layer_plan()
+        port_tf._block_specs(BlockSpec("cross_attn", "dense"), cfg)
 
 
 def test_serving_dtype_holds_slstm_leaves_in_the_activation_dtype():
