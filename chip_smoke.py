@@ -223,7 +223,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    set of 1024 patches for every request, 16 requests at t = 0 of
    16–2000 tokens after the patches and 64 new tokens each: what phase
    23 reports, 48 flash launches a prefill, and decode against teacher
-   forcing over 3072 positions (the patches and 2048 tokens).
+   forcing over 3072 positions (the patches and 2048 tokens);
+29. distributed — ``init_distributed()`` (NCCL, a world of 1, a file
+   store), ``local_mesh()`` and a (1, 1) ``("data", "model")`` mesh;
+   DeepSeek-7B at its published widths cut to 2 layers (float32 masters
+   drawn on the card): two plain train steps and two of the same step on
+   the state distributed on the mesh under ``sharding_ctx`` (DTensors,
+   flash under ``local_map``), alternating, from the same state on a
+   2 x 2048-token batch (the first of each warms up), every updated leaf
+   and the losses held equal (the largest difference as a share of each
+   leaf's scale, at most 1e-6), flash launched as often in the sharded
+   steps as in the plain ones; the compressed DDP
+   step on a (1, 1, 1) ``("pod", "data", "model")`` mesh with compression
+   on and off (relative gradient error under 0.02, the all-reduces and
+   their bytes, the sync's ms); then ``CheckpointManager.save`` of the
+   stepped state and ``restore_elastic`` onto the (1, 1) mesh, every
+   leaf's ``full_tensor()`` equal to the saved one.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -233,6 +248,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -3255,6 +3271,206 @@ def _leaves(tree):
     return [t for _, t in leaves_with_paths(tree)]
 
 
+DIST_LAYERS = 2
+DIST_BATCH, DIST_SEQ = 2, 2048
+DIST_STEPS = 2
+DIST_SHARE_TOL = 1e-6          # sharded vs plain, share of a leaf's scale
+DIST_COMPRESS_REL = 0.02       # the reference's bound on the int8 sync
+
+
+def _state_leaves(state):
+    """(name, tensor) of a TrainState's leaves, the step included."""
+    from repro_torch.train.checkpoint import flatten_with_keys
+    return flatten_with_keys(state)
+
+
+def _synced_ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_distributed(torch, np, dev, smi: str) -> dict:
+    """Phase 29: the distributed layer on the card (see the module
+    docstring)."""
+    import contextlib
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import compression
+    from repro_torch.distributed.elastic import restore_elastic
+    from repro_torch.distributed.sharding import (ShardingCtx,
+                                                  distribute_tree, map_axes,
+                                                  rules_for, sharding_ctx)
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.mesh import (init_distributed, local_mesh,
+                                         make_mesh)
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptimizerConfig
+    t_phase = time.perf_counter()
+    _free(torch)
+    # one temporary root for the process group's file store and the
+    # checkpoint, removed at the end
+    root = tempfile.mkdtemp(prefix="repro_torch_dist_")
+    try:
+        rank_dev = init_distributed(
+            dev, init_method=f"file://{os.path.join(root, 'store')}")
+        lm = local_mesh(dev.type)
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        cfg = dataclasses.replace(get_config("deepseek-7b"),
+                                  num_layers=DIST_LAYERS)
+        line = {"phase": "distributed", "nvidia_smi": smi,
+                "backend": dist.get_backend(),
+                "world": dist.get_world_size(), "device": str(rank_dev),
+                "local_mesh": list(lm.mesh.shape),
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
+                "arch": cfg.name, "layers": cfg.num_layers,
+                "batch": DIST_BATCH, "seq_len": DIST_SEQ}
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        t0 = time.perf_counter()
+        state = ts.init_train_state(gen, cfg, dev)
+        ctx = ShardingCtx(mesh, rules_for(cfg))
+        axes = ts.train_state_axes(cfg)
+        sh_state = distribute_tree(
+            ctx, map_axes(lambda _, t: t.clone(), axes, state), axes)
+        torch.cuda.synchronize()
+        line["init_s"] = time.perf_counter() - t0
+        data = SyntheticLM(cfg, DataConfig(batch_size=DIST_BATCH,
+                                           seq_len=DIST_SEQ, seed=0))
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch(0).items()}
+        sh_batch = distribute_tree(ctx, batch, ts.batch_axes(cfg))
+        step = ts.make_train_step(cfg, OptimizerConfig(warmup_steps=1))
+
+        # DIST_STEPS steps of each, alternating, from equal states (the
+        # first of each warms up): the main path is the sharded step.
+        runs = {"plain": (state, batch, contextlib.nullcontext),
+                "sharded": (sh_state, sh_batch,
+                            lambda: sharding_ctx(mesh, ctx.rules))}
+        for name in runs:
+            line.update({f"{name}_step_ms": [], f"{name}_losses": [],
+                         f"{name}_flash_launches": 0})
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(DIST_STEPS):
+            for name, (st, b, scope) in runs.items():
+                flash.launches = 0
+                with scope():
+                    (_, m), ms = _synced_ms(torch, lambda: step(st, b))
+                line[f"{name}_flash_launches"] += flash.launches
+                line[f"{name}_step_ms"].append(ms)
+                line[f"{name}_losses"].append(float(m["loss"]))
+        line["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+        emit({"phase": "distributed_steps", **{
+            k: line[k] for k in ("init_s", "plain_step_ms",
+                                 "sharded_step_ms", "plain_losses",
+                                 "plain_flash_launches",
+                                 "sharded_flash_launches",
+                                 "peak_device_bytes")}})
+        shares = {}
+        for (key, a), (_, b) in zip(_state_leaves(sh_state),
+                                    _state_leaves(state)):
+            full = a.full_tensor().float()
+            ref = b.float()
+            scale = float(ref.abs().max())
+            diff = float((full - ref).abs().max())
+            shares[key] = diff / scale if scale > 0 else diff
+        worst = max(shares, key=shares.get)
+        line.update({
+            "losses_equal": line["plain_losses"] == line["sharded_losses"],
+            "leaves": len(shares),
+            "leaves_equal": sum(v == 0.0 for v in shares.values()),
+            "worst_leaf": worst, "worst_share_of_scale": shares[worst]})
+        del sh_state, sh_batch
+        _free(torch)
+
+        # compressed DDP sync on a (1, 1, 1) ("pod", "data", "model") mesh
+        mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"), dev.type)
+
+        def loss_fn(params, b):
+            return ts._loss_fn(params, b, cfg, True)[0]
+
+        grads = {}
+        for compress in (True, False):
+            ddp = compression.make_compressed_ddp_step(
+                loss_fn, mesh3, compress=compress)
+            compression.reset_sync_stats()
+            (loss, g), ms = _synced_ms(torch,
+                                       lambda: ddp(state.params, batch))
+            grads[compress] = g
+            key = "int8" if compress else "float32"
+            line[f"ddp_{key}"] = {"step_ms": ms, "loss": float(loss),
+                                  **compression.SYNC_STATS}
+        pod = mesh3.get_group("pod")
+        intra = [mesh3.get_group(a) for a in ("data", "model")]
+        for compress in (True, False):
+            key = "int8" if compress else "float32"
+            compression.reset_sync_stats()
+            _, ms = _synced_ms(torch, lambda: compression.
+                               hierarchical_grad_sync(grads[False], intra,
+                                                      pod, compress))
+            line[f"ddp_{key}"].update(sync_ms=ms, sync_all_reduces=(
+                compression.SYNC_STATS["all_reduce"]),
+                sync_bytes=compression.SYNC_STATS["bytes"])
+        num = max(float((a - b).abs().max()) for a, b in
+                  zip(_leaves(grads[True]), _leaves(grads[False])))
+        den = max(float(b.abs().max()) for b in _leaves(grads[False]))
+        line["compress_rel_err"] = num / den
+        emit({"phase": "distributed_ddp",
+              "compress_rel_err": line["compress_rel_err"],
+              "int8": line["ddp_int8"], "float32": line["ddp_float32"]})
+        del grads
+        _free(torch)
+
+        # save the stepped state, restore it onto the (1, 1) mesh
+        ckpt = CheckpointManager(os.path.join(root, "ckpt"))
+        t0 = time.perf_counter()
+        path = ckpt.save(1, state)
+        line["save_s"] = time.perf_counter() - t0
+        line["checkpoint_bytes"] = sum(
+            os.path.getsize(os.path.join(dp, f))
+            for dp, _, fs in os.walk(path) for f in fs)
+        t0 = time.perf_counter()
+        restored, r_step, _ = restore_elastic(ckpt, cfg, mesh)
+        torch.cuda.synchronize()
+        line["restore_s"] = time.perf_counter() - t0
+        line["restored_step"] = r_step
+        line["restore_equal"] = r_step == 1 and all(
+            torch.equal(a.full_tensor(), b) for (_, a), (_, b) in
+            zip(_state_leaves(restored), _state_leaves(state)))
+        del restored, state
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    _free(torch)
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    bad = []
+    if line["worst_share_of_scale"] > DIST_SHARE_TOL:
+        bad.append(f"leaf {line['worst_leaf']} off by "
+                   f"{line['worst_share_of_scale']} of its scale")
+    if any(abs(a - b) > DIST_SHARE_TOL * abs(b) for a, b in
+           zip(line["sharded_losses"], line["plain_losses"])):
+        bad.append("loss differs")
+    if not 0 < line["sharded_flash_launches"] == \
+            line["plain_flash_launches"]:
+        bad.append("flash launches differ or are none")
+    if not line["compress_rel_err"] < DIST_COMPRESS_REL:
+        bad.append(f"compressed sync off by {line['compress_rel_err']}")
+    if not line["restore_equal"]:
+        bad.append("elastic restore differs")
+    if bad:
+        raise RuntimeError("distributed phase: " + "; ".join(bad))
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3300,6 +3516,7 @@ def main() -> int:
     vg = phase_vlm_golden(torch, np, dev)
     vs = phase_internvl_serve_main(torch, np, dev)
     emit({"phase": "modality_phases", "seconds": time.perf_counter() - t0})
+    dp = phase_distributed(torch, np, dev, info["nvidia_smi"])
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -3402,7 +3619,8 @@ def main() -> int:
             "whisper_serve": ws["launches"]["flash_attention"],
             "whisper_golden_float32": wg["flash_launches"],
             "internvl_serve": vs["launches"]["flash_attention"],
-            "vlm_golden_float32": vg["flash_launches"]},
+            "vlm_golden_float32": vg["flash_launches"],
+            "sharded_train": dp["sharded_flash_launches"]},
         "moe_shape": fl["moe_shape"],
         "command_r_shape": fl["command_r_shape"],
         "whisper_shapes": fl["whisper_shapes"],

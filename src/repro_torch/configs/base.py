@@ -111,10 +111,13 @@ class ArchConfig:
     # kv head, position) (repro_torch/models/layers.py quantize_kv).
     # pad_heads_to: prefill and training attention run on this many
     # heads, the extra ones zero and sliced off before w_o (qwen1.5-32b:
-    # 40 -> 48); decode does not pad.  (The reference's gather_dtype, an
-    # FSDP knob, is not carried.)
+    # 40 -> 48); decode does not pad.  gather_dtype ("bfloat16"): the
+    # training tower casts each segment's float32 stacked parameters to it
+    # once before the layer loop, so a sharded step gathers that many
+    # bytes per layer; the float32 masters and their gradients stay.
     kv_quant: bool = False
     pad_heads_to: int = 0
+    gather_dtype: str = ""
 
     # memory shape knobs (0 = off), read by training.  ce_chunk: the
     # fused LM-head + cross-entropy over sequence chunks
@@ -128,6 +131,11 @@ class ArchConfig:
     # numerics
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
+
+    # per-arch sharding-rule overrides merged over
+    # repro_torch.distributed.sharding.DEFAULT_RULES: (logical axis,
+    # candidate mesh axes) pairs, e.g. xlstm-125m's pure data parallelism.
+    rule_overrides: Tuple[Tuple[str, Tuple], ...] = ()
 
     source: str = ""
 

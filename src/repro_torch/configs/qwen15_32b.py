@@ -4,8 +4,9 @@
 152064.  QKV bias, RMSNorm, SwiGLU, untied head, RoPE theta 1e6.
 Prefill and training attention pad the 40 heads to 48 (``pad_heads_to``:
 zero heads, sliced off before ``w_o``), as the reference does so that
-the heads divide its 16-way model axis; the weights keep 40 heads.  The
-reference's ``attn_chunk`` and sharding-rule overrides are not carried.
+the heads divide its 16-way model axis; the weights keep 40 heads, and
+the rule overrides leave their head dims unsharded.  The reference's
+``attn_chunk`` is not carried.
 """
 from repro_torch.configs.base import ArchConfig, register
 
@@ -23,6 +24,7 @@ CONFIG = ArchConfig(
     ce_chunk=1024,
     train_accum=4,
     pad_heads_to=48,
+    rule_overrides=(("heads", ()), ("kv_heads", ())),
     source="hf:Qwen/Qwen1.5-32B",
 )
 

@@ -13,6 +13,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_call
 from repro_torch.models.params import ParamSpec
 
 
@@ -24,15 +25,23 @@ def conv_specs(channels: int, width: int, axis_name: str = "rnn"
     }
 
 
-def causal_conv1d(p, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, T, C) -> (B, T, C); left-padded causal depthwise conv."""
-    w = p["w"].to(x.dtype)
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    w = w.to(x.dtype)
     width = w.shape[0]
     out = x * w[width - 1]
     for j in range(1, width):
         shifted = F.pad(x, (0, 0, j, 0))[:, :x.shape[1], :]
         out = out + shifted * w[width - 1 - j]
-    return out + p["b"].to(x.dtype)
+    return out + b.to(x.dtype)
+
+
+def causal_conv1d(p, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, C) -> (B, T, C); left-padded causal depthwise conv (on
+    each rank's rows and channels under a sharding context: DTensor's
+    padding rule misplaces the gradient on some versions)."""
+    axes = ("act_batch", None, "act_rnn")
+    return local_call(_conv, (x, p["w"], p["b"]),
+                      (axes, (None, "act_rnn"), ("act_rnn",)), axes)
 
 
 def conv_decode_init(batch: int, channels: int, width: int,

@@ -31,6 +31,17 @@ the flash kernel without a causal mask; one decode token (T = 1) reads
 them in plain PyTorch, as the reference's ``_mha`` does, its float32
 softmax weights rounded to the activation dtype before the weighted sum.
 
+Under ``repro_torch.distributed.sharding.sharding_ctx`` the tensors are
+DTensors and ``shard`` pins them to the reference's logical axes at the
+reference's places; the flash kernel then runs on each rank's local
+shard (batch on ``act_batch``, heads on ``act_heads`` / ``act_kv_heads``,
+the whole sequence), which computes the same function, since attention
+is independent per batch row and head.  A GQA layout whose kv heads do
+not shard as its query heads do repeats k, v to every query head first,
+as the reference does.  The softmax weights of the one-token cross
+attention carry the reference's ``_mha`` constraint in the grouped
+(B, Kv, G, S) layout.
+
 Not ported (raises ``NotImplementedError`` naming ROADMAP Queue 1 item
 11): logit soft-capping.
 """
@@ -44,8 +55,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.distributed.sharding import (current_ctx, local_call,
+                                              merge_dims, shard,
+                                              unflatten_last)
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models.params import ParamSpec
+
+# The residual stream's logical axes (sequence-parallel over `model`).
+RESIDUAL_AXES = ("act_batch", "act_seq", "act_embed")
 
 
 def check_ported(cfg: ArchConfig) -> None:
@@ -69,6 +86,11 @@ def norm_specs(cfg: ArchConfig, d: Optional[int] = None
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The block's pre-norm (B, T, D).  Its output feeds the mixer's and
+    the MLP's projections, so under a sharding context it comes back
+    with the whole sequence on each rank (the residual stream's
+    ``act_seq`` split gathered), as the reference's projections gather
+    it; a matmul cannot fold a sequence-split (B, T) into its rows."""
     xf = x.float()
     if cfg.norm_type == "layernorm":
         mu = xf.mean(-1, keepdim=True)
@@ -78,7 +100,7 @@ def apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     else:
         ms = xf.square().mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
-    return y.to(x.dtype)
+    return shard(y.to(x.dtype), ("act_batch", None, "act_embed"))
 
 
 # --------------------------------------------------------------------------- #
@@ -144,10 +166,11 @@ def apply_mlp(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         h = _act(x @ p["w_gate"].to(dt), cfg.act) * h
     else:
         h = _act(h, cfg.act)
+    h = shard(h, ("act_batch", None, "act_mlp"))
     out = h @ p["w_down"].to(dt)
     if "b_down" in p:
         out = out + p["b_down"].to(dt)
-    return out
+    return shard(out, RESIDUAL_AXES)
 
 
 # --------------------------------------------------------------------------- #
@@ -175,7 +198,7 @@ def attn_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(B, T, D) @ (D, H, hd) -> (B, T, H, hd)."""
     D, H, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * hd)).unflatten(-1, (H, hd))
+    return unflatten_last(x @ merge_dims(w.to(x.dtype), 1), (H, hd))
 
 
 def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig,
@@ -198,8 +221,18 @@ def _project_qkv(p, x: torch.Tensor, cfg: ArchConfig,
 
 def _out_proj(out: torch.Tensor, w_o: torch.Tensor) -> torch.Tensor:
     """(B, T, H, hd) @ (H, hd, D) -> (B, T, D)."""
-    H, hd, D = w_o.shape
-    return out.flatten(-2) @ w_o.to(out.dtype).reshape(H * hd, D)
+    return merge_dims(out, 2) @ merge_dims(w_o.to(out.dtype), 0)
+
+
+def _heads_placement(shape, axes):
+    """The mesh entry a (B, T, H, hd) tensor's head dim resolves to."""
+    spec = current_ctx().resolve(shape, axes)
+    return spec[2] if len(spec) > 2 else None
+
+
+def _flash_local(q, k, v, **kw):
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           **kw)
 
 
 def attention_from_qkv(q, k, v, *, causal: bool = True, window: int = 0,
@@ -219,10 +252,26 @@ def attention_from_qkv(q, k, v, *, causal: bool = True, window: int = 0,
         v = v.repeat_interleave(rep, dim=2)
         pad = (0, 0, 0, pad_heads_to - n_heads)
         q, k, v = (F.pad(t, pad) for t in (q, k, v))
-    out = flash_attention(q.transpose(1, 2).contiguous(),
-                          k.transpose(1, 2).contiguous(),
-                          v.transpose(1, 2).contiguous(),
-                          causal=causal, window=window, sm_scale=1.0)
+    q_axes = ("act_batch", "act_q_seq", "act_heads", None)
+    kv_axes = ("act_batch", None, "act_heads" if k.shape[2] == q.shape[2]
+               else "act_kv_heads", None)
+    if current_ctx() is not None and k.shape[2] != q.shape[2] and (
+            _heads_placement(q.shape, q_axes)
+            != _heads_placement(k.shape, kv_axes)):
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+        kv_axes = ("act_batch", None, "act_heads", None)
+    q = shard(q, q_axes)
+    k = shard(k, kv_axes)
+    v = shard(v, kv_axes)
+    local = ("act_batch", q_axes[2], None, None)
+    local_kv = ("act_batch", kv_axes[2], None, None)
+    out = local_call(_flash_local,
+                     (q.transpose(1, 2), k.transpose(1, 2),
+                      v.transpose(1, 2)),
+                     (local, local_kv, local_kv), local,
+                     causal=causal, window=window, sm_scale=1.0)
     return out.transpose(1, 2)[:, :, :n_heads]
 
 
@@ -235,7 +284,7 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, *,
     q, k, v = _project_qkv(p, x, cfg, positions, use_rope)
     out = attention_from_qkv(q, k, v, causal=causal, window=window,
                              pad_heads_to=cfg.pad_heads_to)
-    return _out_proj(out, p["w_o"])
+    return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES)
 
 
 # ----------------------------- decode path ---------------------------------- #
@@ -260,6 +309,20 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
         cache["k"] = torch.zeros(shape, dtype=dtype, device=device)
         cache["v"] = torch.zeros(shape, dtype=dtype, device=device)
     return cache
+
+
+CACHE_AXES = ("act_batch", "act_kv_heads", "act_kv_seq", None)
+
+
+def cache_axes(quant: bool = False) -> Dict[str, tuple]:
+    """Logical axes of a KV cache's leaves.  ``pos`` is a scalar in the
+    uniform-wave states the shape specs describe
+    (``repro_torch.launch.shapes``)."""
+    ax = {"k": CACHE_AXES, "v": CACHE_AXES, "pos": ()}
+    if quant:
+        ax["k_scale"] = CACHE_AXES[:3]
+        ax["v_scale"] = CACHE_AXES[:3]
+    return ax
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -326,6 +389,7 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     else:
         k[rows, :, slot] = k_new[:, 0].to(k.dtype)
         v[rows, :, slot] = v_new[:, 0].to(v.dtype)
+    k, v = shard(cache["k"], CACHE_AXES), shard(cache["v"], CACHE_AXES)
 
     qg = q.reshape(B, Kv, G, hd)
     if cfg.kv_quant:
@@ -351,7 +415,7 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
         out = torch.einsum("bkgs,bksh->bkgh", w.to(q.dtype), v)
     out = out.reshape(B, 1, cfg.num_heads, hd)
     pos.add_(1)
-    return _out_proj(out, p["w_o"]), cache
+    return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES), cache
 
 
 # ----------------------------- cross attention ------------------------------- #
@@ -398,9 +462,10 @@ def cross_attention(p, x: torch.Tensor, cfg: ArchConfig,
         qg = q.reshape(B, Kv, G, hd)
         scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
         w = torch.softmax(scores, dim=-1).to(dt)
+        w = shard(w, ("act_batch", "act_kv_heads", None, None))
         out = torch.einsum("bkgs,bskh->bkgh", w, v).reshape(
             B, 1, cfg.num_heads, hd)
-    return _out_proj(out, p["w_o"])
+    return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES)
 
 
 # --------------------------------------------------------------------------- #

@@ -26,15 +26,25 @@ and each token gathers its kept rows back, weighted and summed in
 float32.  The expert products are plain matrix products in the
 reference too (``jnp.einsum`` outside any Pallas kernel), so this layer
 has no kernel of its own.
+
+Under a sharding context (DTensors) the layer is expert-parallel
+(:func:`_moe_sharded`): the expert weights split over ``act_expert``,
+as the reference's dispatched buffers do, each rank routing its batch
+rows whole and running its own experts, the float32 sums reduced over
+the expert split before the cast; the shared experts and the output
+carry the reference's constraints.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import (current_ctx, is_dtensor,
+                                              local_run, shard)
 from repro_torch.models.params import ParamSpec
 
 MOE_GROUP_SIZE = 512   # tokens per dispatch group (GShard "groups")
@@ -112,8 +122,83 @@ def aux_loss(r: Routing, cfg: ArchConfig) -> torch.Tensor:
     token's first choice: () float32."""
     E = cfg.n_experts
     me = r.probs.mean(dim=(0, 1, 2))
-    ce = F.one_hot(r.gate_idx[..., 0], E).float().mean(dim=(0, 1, 2))
+    first = r.gate_idx[..., 0, None] == torch.arange(E, device=me.device)
+    ce = first.float().mean(dim=(0, 1, 2))
     return cfg.router_aux_coef * E * torch.sum(me * ce)
+
+
+def _expert_sum(x: torch.Tensor, r: Routing, w_gate, w_up, w_down,
+                cfg: ArchConfig, e0: int = 0) -> torch.Tensor:
+    """The routed experts' outputs for x (B, T, D), each token's kept
+    choices weighted and summed in float32: (B, T, D) float32.  The
+    weights hold experts ``e0`` .. ``e0 + len(w_gate) - 1`` (all of
+    them, or one rank's shard); a choice of another expert weighs 0."""
+    B, T, D = x.shape
+    El, K = w_gate.shape[0], cfg.experts_per_token
+    G, Sg = groups(T)
+    C = group_capacity(cfg, Sg)
+    dt = x.dtype
+    mine = r.keep if El == cfg.n_experts else \
+        r.keep & (r.gate_idx >= e0) & (r.gate_idx < e0 + El)
+
+    # Row of each choice in the (El * B·G·C, D) expert buffer: expert,
+    # then group, then capacity position; kept rows are unique.  Other
+    # choices go to one spare row past the buffer, so no step waits on
+    # the host for the count of kept ones.
+    rows = B * G * C
+    group = torch.arange(B * G, device=x.device).reshape(B, G, 1, 1)
+    slot = (r.gate_idx - e0) * rows + group * C + r.pos
+    token = torch.arange(B * T, device=x.device).repeat_interleave(K)
+    xe = x.new_zeros(El * rows + 1, D).index_copy(
+        0, torch.where(mine, slot, El * rows).reshape(-1),
+        x.reshape(B * T, D)[token])
+
+    xe = xe[:-1].view(El, rows, D)
+    g = torch.bmm(xe, w_gate.to(dt))
+    u = torch.bmm(xe, w_up.to(dt))
+    ye = torch.bmm(F.silu(g) * u, w_down.to(dt)).view(El * rows, D)
+
+    # Combine: each token's rows (another expert's or a dropped choice
+    # weighs 0), the weights rounded to the activation dtype, summed in
+    # float32.
+    w = torch.where(mine, r.gate_vals, 0.0).to(dt)          # (B,G,Sg,K)
+    rows_of = ye[torch.where(mine, slot, 0)].float()        # (B,G,Sg,K,D)
+    return (w.float().unsqueeze(-1) * rows_of).sum(-2).reshape(B, T, D)
+
+
+def _moe_sharded(p, x: torch.Tensor, cfg: ArchConfig, ctx
+                 ) -> Tuple[torch.Tensor, Routing]:
+    """Expert parallelism on DTensors: every rank routes its batch rows'
+    tokens whole (routing is replicated over the other mesh dims), then
+    runs the experts its ``act_expert`` shard holds on those tokens;
+    the float32 sums are partial over the expert split, reduced before
+    the cast to the activation dtype."""
+    from torch.distributed.tensor import Partial, Shard
+    B, T, D = x.shape
+    G, Sg = groups(T)
+    x = shard(x, ("act_batch", None, None))
+    xg = x.reshape(B, G, Sg, D)
+    grouped = ctx.placements_for(xg.shape, ("act_batch", None, None, None))
+    tokens = ctx.placements_for(x.shape, ("act_batch", None, None))
+    whole = ctx.placements_for(p["w_router"].shape, (None, None))
+    r = Routing(*local_run(lambda xx, w: tuple(route({"w_router": w}, xx,
+                                                      cfg)),
+                           (xg, p["w_router"]), (grouped, whole),
+                           (list(grouped),) * 5))
+    ex = ctx.placements_for(p["w_gate"].shape, ("act_expert", None, None))
+    split = [i for i, pl in enumerate(ex) if isinstance(pl, Shard)]
+    coord = ctx.mesh.get_coordinate()
+    idx = 0
+    for i in split:
+        idx = idx * ctx.mesh.size(i) + coord[i]
+    e0 = idx * (cfg.n_experts // math.prod(ctx.mesh.size(i) for i in split))
+    out_pl = [Partial() if i in split else pl for i, pl in enumerate(tokens)]
+    out = local_run(
+        lambda xx, gi, gv, pos, keep, wg, wu, wd: _expert_sum(
+            xx, Routing(gi, gv, pos, keep, None), wg, wu, wd, cfg, e0),
+        (x, r.gate_idx, r.gate_vals, r.pos, r.keep, p["w_gate"], p["w_up"],
+         p["w_down"]), (tokens,) + (grouped,) * 4 + (ex,) * 3, out_pl)
+    return shard(out, ("act_batch", None, None)).to(x.dtype), r
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
@@ -122,37 +207,17 @@ def apply_moe(p, x: torch.Tensor, cfg: ArchConfig
     ``apply_moe`` returns the aux loss in place of the routing:
     ``aux_loss(routing, cfg)`` is that loss."""
     B, T, D = x.shape
-    E, K = cfg.n_experts, cfg.experts_per_token
     G, Sg = groups(T)
-    C = group_capacity(cfg, Sg)
     dt = x.dtype
-    r = route(p, x.reshape(B, G, Sg, D), cfg)
-
-    # Row of each choice in the (E * B·G·C, D) expert buffer: expert, then
-    # group, then capacity position; kept rows are unique.  Dropped
-    # choices go to one spare row past the buffer, so no step waits on
-    # the host for the count of kept ones.
-    rows = B * G * C
-    group = torch.arange(B * G, device=x.device).reshape(B, G, 1, 1)
-    slot = r.gate_idx * rows + group * C + r.pos
-    token = torch.arange(B * T, device=x.device).repeat_interleave(K)
-    xe = x.new_zeros(E * rows + 1, D).index_copy(
-        0, torch.where(r.keep, slot, E * rows).reshape(-1),
-        x.reshape(B * T, D)[token])
-
-    xe = xe[:-1].view(E, rows, D)
-    g = torch.bmm(xe, p["w_gate"].to(dt))
-    u = torch.bmm(xe, p["w_up"].to(dt))
-    ye = torch.bmm(F.silu(g) * u, p["w_down"].to(dt)).view(E * rows, D)
-
-    # Combine: each token's kept rows (a dropped choice weighs 0), the
-    # weights rounded to the activation dtype, summed in float32.
-    w = torch.where(r.keep, r.gate_vals, 0.0).to(dt)         # (B,G,Sg,K)
-    rows_of = ye[torch.where(r.keep, slot, 0)].float()      # (B,G,Sg,K,D)
-    out = (w.float().unsqueeze(-1) * rows_of).sum(-2)
-    out = out.to(dt).reshape(B, T, D)
-
+    ctx = current_ctx()
+    if ctx is not None and is_dtensor(x):
+        out, r = _moe_sharded(p, x, cfg, ctx)
+    else:
+        r = route(p, x.reshape(B, G, Sg, D), cfg)
+        out = _expert_sum(x, r, p["w_gate"], p["w_up"], p["w_down"],
+                          cfg).to(dt)
     if cfg.n_shared_experts > 0:
         hs = F.silu(x @ p["shared_gate"].to(dt)) * (x @ p["shared_up"].to(dt))
+        hs = shard(hs, ("act_batch", None, "act_mlp"))
         out = out + hs @ p["shared_down"].to(dt)
-    return out, r
+    return shard(out, ("act_batch", "act_seq", "act_embed")), r

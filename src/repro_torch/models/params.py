@@ -99,6 +99,20 @@ def stack_specs(specs, n: int):
     return map_tree(lambda _, spec: spec.stacked(n), specs)
 
 
+def param_shapes(specs, dtype: Optional[DType] = None) -> Dict:
+    """The parameters as tensors on the meta device: shapes and dtypes,
+    no storage (the torch stand-in for ``jax.ShapeDtypeStruct``)."""
+    return map_tree(lambda path, spec: torch.empty(
+        spec.shape, dtype=_leaf_dtype(dtype, path, spec.dtype),
+        device="meta"), specs)
+
+
+def param_axes(specs):
+    """The tree of each leaf's logical axes (tuples of names), for
+    ``repro_torch.distributed.sharding``."""
+    return map_tree(lambda _, spec: spec.axes, specs)
+
+
 def count_params(specs) -> int:
     return sum(math.prod(spec.shape) for _, spec in leaves_with_paths(specs))
 

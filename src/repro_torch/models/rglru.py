@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import local_call, shard
 from repro_torch.kernels.rglru_scan import rglru_scan as _scan
 from repro_torch.models.conv import (causal_conv1d, causal_conv1d_step,
                                      conv_decode_init, conv_specs)
@@ -90,14 +91,16 @@ def _coeffs(p, xc: torch.Tensor, r: int):
 
 
 def rglru_scan(p, xc: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """Full-sequence linear recurrence, in xc's dtype (the kernel)."""
+    """Full-sequence linear recurrence, in xc's dtype (the kernel; on
+    each rank's local channels under a sharding context)."""
     a, b = _coeffs(p, xc, _rnn_width(cfg))
-    return _scan(a, b, out_dtype=xc.dtype)
+    axes = ("act_batch", None, "act_rnn")
+    return local_call(_scan, (a, b), (axes, axes), axes, out_dtype=xc.dtype)
 
 
 def _branches(p, x: torch.Tensor):
     dt = x.dtype
-    branch = x @ p["w_in"].to(dt)
+    branch = shard(x @ p["w_in"].to(dt), ("act_batch", None, "act_rnn"))
     gate = F.gelu(x @ p["w_gate_branch"].to(dt), approximate="tanh")
     return branch, gate
 
@@ -111,7 +114,8 @@ def rglru_prefill(p, x: torch.Tensor, cfg: ArchConfig
     branch, gate = _branches(p, x)
     xc = causal_conv1d(p["conv"], branch)
     h = rglru_scan(p, xc, cfg)
-    out = (h * gate) @ p["w_out"].to(x.dtype)
+    out = shard((h * gate) @ p["w_out"].to(x.dtype),
+                ("act_batch", "act_seq", "act_embed"))
     state = {"h": h[:, -1].float(),
              "conv": branch[:, -(cfg.conv_width - 1):, :]}
     return out, state

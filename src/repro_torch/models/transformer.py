@@ -45,6 +45,17 @@ sinusoidal positions: the table in a full sequence, and at decode the
 inline sinusoid at each slot's position before the step.  InternVL2
 puts ``batch["pixel_embeds"]`` ahead of the tokens; the causal mask and
 RoPE positions cover them.
+
+Under ``repro_torch.distributed.sharding.sharding_ctx`` the parameters
+and batch are DTensors; ``shard`` pins the residual stream and the
+logits to the reference's logical axes, and the training tower
+re-asserts each layer's parameter placements (``_shard_layer_params``)
+inside the (checkpointed) superblock, as the reference does inside its
+scanned one.  With ``cfg.gather_dtype`` the training tower casts each
+segment's float32 parameters to that dtype once before its layer loop
+(the reference's FSDP gather knob); gradients flow back to the float32
+leaves.  ``block_state_axes`` and ``decode_state_axes`` give the decode
+state's logical axes.
 """
 from __future__ import annotations
 
@@ -55,7 +66,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED, ArchConfig, BlockSpec, Segment
 from repro_torch.models import layers, moe, rglru, xlstm
-from repro_torch.models.params import ParamSpec, map_tree, stack_specs
+from repro_torch.distributed.sharding import (bind_ctx, current_ctx,
+                                              lookup_rows, map_axes, shard)
+from repro_torch.models.params import (ParamSpec, map_tree, param_axes,
+                                       stack_specs)
 
 VOCAB_PAD_MULTIPLE = 512
 
@@ -249,10 +263,12 @@ CROSS_KEYS = ("cross_k", "cross_v")
 
 def init_block_state(blk: BlockSpec, cfg: ArchConfig, batch: int,
                      cache_len: int, dtype=torch.bfloat16,
-                     device=None) -> Dict:
+                     device=None, per_example_pos: bool = True) -> Dict:
     """A block's zero decode state.  ``dtype`` is the KV caches' (and
     the cross k, v's); the recurrent states (RG-LRU, mLSTM, sLSTM) are
-    float32 whatever it is, as the reference's."""
+    float32 whatever it is, as the reference's.  Without
+    ``per_example_pos`` a cache's ``pos`` is one scalar, the uniform
+    decode wave of the reference's shape specs."""
     _check_block(blk, cfg)
     if blk.mixer in _RECURRENT:
         st = _RECURRENT[blk.mixer].decode_init(cfg, batch, device=device)
@@ -260,11 +276,37 @@ def init_block_state(blk: BlockSpec, cfg: ArchConfig, batch: int,
         st = layers.init_kv_cache(cfg, batch, cache_len,
                                   window=_window(blk, cfg), dtype=dtype,
                                   device=device)
+        if not per_example_pos:
+            st["pos"] = torch.zeros((), dtype=torch.int32, device=device)
     if blk.cross_attn:
         shape = (batch, cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim_)
         for name in CROSS_KEYS:
             st[name] = torch.zeros(shape, dtype=dtype, device=device)
     return st
+
+
+_RECURRENT_STATE_AXES = {
+    "mlstm": {"C": ("act_batch", "act_heads", None, None),
+              "n": ("act_batch", "act_heads", None),
+              "m": ("act_batch", "act_heads"),
+              "conv": ("act_batch", None, "act_rnn")},
+    "slstm": {k: ("act_batch", "act_rnn") for k in ("c", "n", "m", "h")},
+    "rglru": {"h": ("act_batch", "act_rnn"),
+              "conv": ("act_batch", None, "act_rnn")},
+}
+
+
+def block_state_axes(blk: BlockSpec, cfg: ArchConfig) -> Dict:
+    """Logical axes of a block's decode state."""
+    _check_block(blk, cfg)
+    if blk.mixer in _RECURRENT:
+        ax = dict(_RECURRENT_STATE_AXES[blk.mixer])
+    else:
+        ax = layers.cache_axes(cfg.kv_quant)
+    if blk.cross_attn:
+        for name in CROSS_KEYS:
+            ax[name] = ("act_batch", None, "act_kv_heads", None)
+    return ax
 
 _rglru_prefill = rglru.rglru_prefill
 
@@ -365,6 +407,32 @@ def _segment_layers(seg: Segment, seg_p):
     return [seg_p]
 
 
+def _segment_axes(cfg: ArchConfig, seg: Segment) -> Dict:
+    """The logical-axes tree of one layer of a segment (no layer
+    axis)."""
+    return param_axes({f"block{j}": _block_specs(blk, cfg)
+                       for j, blk in enumerate(seg.blocks)})
+
+
+def _shard_layer_params(layer_p, seg_axes):
+    """Re-assert a layer's parameter placements under a sharding
+    context (the reference's guard against one gather of every layer at
+    once); the layer itself without one."""
+    if current_ctx() is None:
+        return layer_p
+    return map_axes(lambda ax, p: shard(p, ax), seg_axes, layer_p)
+
+
+def _gather_cast(seg_p, cfg: ArchConfig):
+    """``cfg.gather_dtype``: a segment's float32 leaves cast to it once
+    before the layer loop; the segment itself without it."""
+    if not cfg.gather_dtype:
+        return seg_p
+    gd = getattr(torch, cfg.gather_dtype)
+    return map_tree(lambda _, v: v.to(gd) if v.dtype == torch.float32
+                    else v, seg_p)
+
+
 def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
                      causal: bool = True, remat: bool = True, enc_out=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -374,7 +442,11 @@ def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
     grad enabled each superblock is checkpointed."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for seg, seg_p in zip(plan, segments_p):
-        def superblock(xx, layer_p, seg=seg):
+        seg_axes = _segment_axes(cfg, seg)
+        seg_p = _gather_cast(seg_p, cfg)
+
+        def superblock(xx, layer_p, seg=seg, seg_axes=seg_axes):
+            layer_p = _shard_layer_params(layer_p, seg_axes)
             ax = torch.zeros((), dtype=torch.float32, device=xx.device)
             for j, blk in enumerate(seg.blocks):
                 xx, a = apply_block(blk, layer_p[f"block{j}"], xx, cfg,
@@ -386,7 +458,7 @@ def _run_tower_train(segments_p, plan: List[Segment], x, cfg, positions,
 
         for layer_p in _segment_layers(seg, seg_p):
             if remat and torch.is_grad_enabled():
-                x, a = checkpoint(superblock, x, layer_p,
+                x, a = checkpoint(bind_ctx(superblock), x, layer_p,
                                   use_reentrant=False,
                                   preserve_rng_state=False)
             else:
@@ -444,7 +516,7 @@ def _run_tower_decode(segments_p, plan, x, cfg, states):
 
 def _embed_tokens(params, tokens, cfg: ArchConfig) -> torch.Tensor:
     dt = getattr(torch, cfg.dtype)
-    return params["embed"][tokens].to(dt)
+    return lookup_rows(params["embed"], tokens, ("act_batch", None)).to(dt)
 
 
 def _embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
@@ -460,7 +532,7 @@ def _embed_inputs(params, batch: Dict, cfg: ArchConfig) -> torch.Tensor:
     if not cfg.use_rope:
         x = x + layers.sinusoidal_embeddings(x.shape[1], cfg.d_model, dt,
                                              x.device)[None]
-    return x
+    return shard(x, layers.RESIDUAL_AXES)
 
 
 def _cache_pos(states: List) -> torch.Tensor:
@@ -501,8 +573,10 @@ def _encoder_output(params, batch: Dict, cfg: ArchConfig, remat: bool):
 def _lm_logits(params, x, cfg: ArchConfig) -> torch.Tensor:
     x = layers.apply_norm(params["final_norm"], x, cfg)
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    return shard(logits, ("act_batch", None, "act_vocab"))
 
 
 def _positions(B: int, T: int, device) -> torch.Tensor:
@@ -544,19 +618,38 @@ def forward_train(params, batch: Dict, cfg: ArchConfig, *,
 
 
 def init_decode_state(cfg: ArchConfig, batch: int, cache_len: int,
-                      dtype=torch.bfloat16, device=None) -> List:
-    """Zero decode state; stacked segments get a leading layer axis."""
+                      dtype=torch.bfloat16, device=None,
+                      per_example_pos: bool = True) -> List:
+    """Zero decode state; stacked segments get a leading layer axis.
+    Without ``per_example_pos`` each cache's position is a scalar: the
+    form the shape specs describe (``repro_torch.launch.shapes``); the
+    port's decode step reads per-example positions."""
     states = []
     for seg in cfg.layer_plan():
         seg_states = {}
         for j, blk in enumerate(seg.blocks):
-            st = init_block_state(blk, cfg, batch, cache_len, dtype, device)
+            st = init_block_state(blk, cfg, batch, cache_len, dtype, device,
+                                  per_example_pos)
             if seg.repeats > 1:
                 st = {k: v[None].repeat((seg.repeats,) + (1,) * v.dim())
                       for k, v in st.items()}
             seg_states[f"block{j}"] = st
         states.append(seg_states)
     return states
+
+
+def decode_state_axes(cfg: ArchConfig) -> List:
+    """The logical-axes tree of ``init_decode_state``'s output."""
+    axes = []
+    for seg in cfg.layer_plan():
+        seg_axes = {}
+        for j, blk in enumerate(seg.blocks):
+            ax = block_state_axes(blk, cfg)
+            if seg.repeats > 1:
+                ax = {k: ("layer",) + a for k, a in ax.items()}
+            seg_axes[f"block{j}"] = ax
+        axes.append(seg_axes)
+    return axes
 
 
 def prefill(params, batch: Dict, cfg: ArchConfig, cache_len: int
@@ -584,6 +677,7 @@ def decode_step(params, tokens: torch.Tensor, states: List, cfg: ArchConfig
     if not cfg.use_rope:
         x = x + layers.sinusoid_at(_cache_pos(states), cfg.d_model,
                                    dt)[:, None, :]
+    x = shard(x, layers.RESIDUAL_AXES)
     x, states = _run_tower_decode(params["segments"], cfg.layer_plan(), x,
                                   cfg, states)
     return _lm_logits(params, x, cfg)[:, 0], states

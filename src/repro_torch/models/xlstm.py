@@ -23,9 +23,10 @@ walks twice, to the same values).
 Dtypes follow the reference: weights are read as ``astype(x.dtype)``
 except the RMS norm's scale (float32), and where the float32 decode
 state meets a bfloat16 activation the product takes the wider dtype, as
-JAX promotes (the weight rounded to bfloat16 first, then widened).  The
-reference's ``shard(...)`` layout hints carry no arithmetic and are
-dropped.
+JAX promotes (the weight rounded to bfloat16 first, then widened).
+Under a sharding context the reference's ``shard(...)`` constraints pin
+the DTensors, the mLSTM kernel runs on each rank's local batch rows and
+heads, and the sLSTM's time loop on each rank's batch rows.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import local_call, shard
 from repro_torch.kernels.mlstm_chunkwise import mlstm_chunkwise
 from repro_torch.models.conv import (causal_conv1d, causal_conv1d_step,
                                      conv_decode_init, conv_specs)
@@ -75,9 +77,24 @@ def _mlstm_chunkwise(q, k, v, i_raw, f_raw, state=None, chunk=MLSTM_CHUNK,
     """q,k,v: (B,H,T,dh); i_raw,f_raw: (B,H,T).  Returns (h, state) with
     state = (C: (B,H,dk,dv), n: (B,H,dk), m: (B,H)) in float32, or
     ``None`` when ``return_state`` is off."""
-    q, k, v, i_raw, f_raw = (t.contiguous() for t in (q, k, v, i_raw, f_raw))
-    return mlstm_chunkwise(q, k, v, i_raw, f_raw, state=state, chunk=chunk,
-                           return_state=return_state)
+    def cell(q, k, v, i_raw, f_raw):
+        q, k, v, i_raw, f_raw = (t.contiguous()
+                                 for t in (q, k, v, i_raw, f_raw))
+        h, st = mlstm_chunkwise(q, k, v, i_raw, f_raw, state=state,
+                                chunk=chunk, return_state=return_state)
+        return (h,) + tuple(st) if return_state else h
+
+    heads = ("act_batch", "act_heads", None, None)
+    args = (q, k, v, i_raw, f_raw)
+    in_axes = (heads,) * 3 + (heads[:3],) * 2
+    if not return_state:
+        return local_call(cell, args, in_axes, heads), None
+    B, H, _, dk = q.shape
+    shapes = (v.shape, (B, H, dk, v.shape[-1]), (B, H, dk), (B, H))
+    h, C, n, m = local_call(cell, args, in_axes,
+                            (heads, heads, heads[:3], heads[:2]),
+                            out_shapes=shapes)
+    return h, (C, n, m)
 
 
 def _read(w: torch.Tensor, dt: torch.dtype, like: torch.Tensor):
@@ -95,7 +112,8 @@ def _mlstm_qkv(p, x: torch.Tensor, cfg: ArchConfig, conv_state=None):
     conv output is float32, and so are q, k and the gates."""
     dt = x.dtype
     _, _, dh = _dims(cfg)
-    up = torch.einsum("btd,du->btu", x, p["w_up"].to(dt))
+    up = shard(torch.einsum("btd,du->btu", x, p["w_up"].to(dt)),
+               ("act_batch", None, "act_rnn"))
     gate = F.silu(torch.einsum("btd,du->btu", x, p["w_gate"].to(dt)))
     if conv_state is None:
         c, new_conv_state = causal_conv1d(p["conv"], up), None
@@ -120,7 +138,8 @@ def _mlstm_out(p, h, gate, cfg: ArchConfig, dtype):
     ms = hm.square().mean(-1, keepdim=True)
     hm = hm * torch.rsqrt(ms + 1e-6) * p["out_norm"]["scale"].float()
     hm = hm.to(dtype) * gate
-    return torch.einsum("btu,ud->btd", hm, p["w_down"].to(dtype))
+    return shard(torch.einsum("btu,ud->btd", hm, p["w_down"].to(dtype)),
+                 ("act_batch", "act_seq", "act_embed"))
 
 
 def apply_mlstm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -222,25 +241,30 @@ def _slstm_cell(gates: torch.Tensor, state: SLSTMState) -> SLSTMState:
 
 
 def _slstm_gx(p, x: torch.Tensor) -> torch.Tensor:
-    """The input part of the gates, ``x @ w_x``: (..., D) -> (..., 4, D)."""
-    return torch.einsum("...d,dgk->...gk", x, p["w_x"].to(x.dtype))
+    """The input part of the gates, ``x @ w_x``: (..., D) -> (..., 4, D).
+    Under a sharding context ``w_x``'s output dim is gathered first:
+    the product views (4, D) as one dim, which DTensor refuses while
+    its trailing part is split."""
+    w = shard(p["w_x"], ("embed", None, None))
+    return torch.einsum("...d,dgk->...gk", x, w.to(x.dtype))
 
 
-def _slstm_gh(p, h_prev: torch.Tensor, cfg: ArchConfig,
+def _slstm_gh(r_h: torch.Tensor, h_prev: torch.Tensor,
               dt: torch.dtype) -> torch.Tensor:
     """The recurrent part: the block-diagonal ``h_{t-1} @ r_h`` (one
-    block per head), (B, D) -> (B, 4, D) in ``dt``."""
+    block per head, r_h (H, dh, 4, dh)), (B, D) -> (B, 4, D) in
+    ``dt``."""
     B, D = h_prev.shape
-    H = cfg.num_heads
+    H = r_h.shape[0]
     hh = h_prev.reshape(B, H, D // H).to(dt)
-    gh = torch.einsum("bhk,hkgj->bghj", hh, p["r_h"].to(dt))
+    gh = torch.einsum("bhk,hkgj->bghj", hh, r_h.to(dt))
     return gh.reshape(B, 4, D)
 
 
 def _slstm_gates(p, xt: torch.Tensor, h_prev: torch.Tensor,
                  cfg: ArchConfig) -> torch.Tensor:
     """xt: (B, D); h_prev: (B, D) -> raw gates (B, 4, D)."""
-    return (_slstm_gx(p, xt) + _slstm_gh(p, h_prev, cfg, xt.dtype)
+    return (_slstm_gx(p, xt) + _slstm_gh(p["r_h"], h_prev, xt.dtype)
             + p["bias"].to(xt.dtype))
 
 
@@ -254,25 +278,41 @@ def slstm_decode_init(cfg: ArchConfig, batch: int, device=None) -> Dict:
                             device=device), "h": z()}
 
 
-def _slstm_walk(p, x: torch.Tensor, cfg: ArchConfig
-                ) -> Tuple[torch.Tensor, SLSTMState]:
-    """The recurrence over x (B, T, D) from the zero state: (h (B, T, D)
-    float32, the final (c, n, m, h))."""
-    B, T, D = x.shape
-    gx = _slstm_gx(p, x)                      # (B, T, 4, D), all T at once
-    bias = p["bias"].to(x.dtype)
-    state = tuple(slstm_decode_init(cfg, B, x.device)[k]
+def _walk(gx: torch.Tensor, r_h: torch.Tensor, bias: torch.Tensor, cfg):
+    """The time loop over gx (B, T, 4, D) from the zero state: h (B, T,
+    D) float32 and the final c, n, m, h."""
+    B, T, _, D = gx.shape
+    state = tuple(slstm_decode_init(cfg, B, gx.device)[k]
                   for k in ("c", "n", "m", "h"))
     hs = []
     for t in range(T):
-        gates = gx[:, t] + _slstm_gh(p, state[3], cfg, x.dtype) + bias
+        gates = gx[:, t] + _slstm_gh(r_h, state[3], gx.dtype) + bias
         state = _slstm_cell(gates, state)
         hs.append(state[3])
-    return torch.stack(hs, 1), state
+    return (torch.stack(hs, 1),) + state
+
+
+def _slstm_walk(p, x: torch.Tensor, cfg: ArchConfig
+                ) -> Tuple[torch.Tensor, SLSTMState]:
+    """The recurrence over x (B, T, D) from the zero state: (h (B, T, D)
+    float32, the final (c, n, m, h)).  Under a sharding context the loop
+    runs on each rank's batch rows (``local_call``), since DTensor would
+    dispatch every op of every step."""
+    B, T, D = x.shape
+    gx = _slstm_gx(p, x)                      # (B, T, 4, D), all T at once
+    bias = p["bias"].to(x.dtype)
+    rows = ("act_batch", None)
+    h, *state = local_call(
+        _walk, (gx, p["r_h"], bias), (rows + (None, None), (None,) * 4,
+                                      (None, None)),
+        (rows + (None,),) + (rows,) * 4,
+        out_shapes=((B, T, D),) + ((B, D),) * 4, cfg=cfg)
+    return h, tuple(state)
 
 
 def _slstm_out(p, h: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
-    return torch.einsum("btd,de->bte", h.to(dt), p["w_out"].to(dt))
+    return shard(torch.einsum("btd,de->bte", h.to(dt), p["w_out"].to(dt)),
+                 ("act_batch", "act_seq", "act_embed"))
 
 
 def apply_slstm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:

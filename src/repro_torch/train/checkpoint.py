@@ -65,6 +65,28 @@ def _walk(tree, prefix: Tuple[str, ...] = ()
         yield prefix, tree
 
 
+def _placements_by_key(tree) -> Dict[str, Tuple]:
+    """``{key: placements}`` of a tree whose leaves are tuples of DTensor
+    placements, keyed as :func:`flatten_with_keys` keys a tree of the
+    same structure."""
+    from torch.distributed.tensor import Placement
+
+    def walk(t, prefix):
+        if isinstance(t, tuple) and t and not _is_namedtuple(t) and all(
+                isinstance(p, Placement) for p in t):
+            yield "/".join(prefix), t
+        elif _is_namedtuple(t):
+            for name in t._fields:
+                yield from walk(getattr(t, name), prefix + (f".{name}",))
+        elif isinstance(t, dict):
+            for key in sorted(t):
+                yield from walk(t[key], prefix + (f"[{key!r}]",))
+        elif isinstance(t, (list, tuple)):
+            for i, val in enumerate(t):
+                yield from walk(val, prefix + (f"[{i}]",))
+    return dict(walk(tree, ()))
+
+
 def flatten_with_keys(tree) -> List[Tuple[str, Any]]:
     """``(key, leaf)`` in JAX's flattening order, keyed as JAX keys them."""
     return [("/".join(parts), leaf) for parts, leaf in _walk(tree)]
@@ -239,11 +261,20 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def restore(self, tree_like, step: Optional[int] = None, *,
-                into: bool = False) -> Tuple[Any, int, Dict]:
+                into: bool = False, mesh=None, placements=None
+                ) -> Tuple[Any, int, Dict]:
         """Restore into the structure of ``tree_like`` (shapes must
         match): each leaf cast to the like leaf's dtype, a tensor on its
         device.  ``into`` copies into ``tree_like``'s tensors and returns
-        that tree.  Returns ``(tree, step, extra)``."""
+        that tree.  With ``placements`` (a tree like ``tree_like`` of
+        DTensor placement tuples, ``sharding.tree_shardings``) each leaf
+        is instead ``distribute_tensor``-ed onto ``mesh`` at its
+        placements (``tree_like`` may then live on the meta device).
+        Returns ``(tree, step, extra)``."""
+        if placements is not None and (into or mesh is None):
+            raise ValueError("placements= needs a mesh and no into=")
+        pl_by_key = {} if placements is None else _placements_by_key(
+            placements)
         d, step = _step_dir(self.directory, step)
         with open(os.path.join(d, "meta.json")) as f:
             meta = json.load(f)
@@ -258,6 +289,11 @@ class CheckpointManager:
                 if not isinstance(like, torch.Tensor):
                     return arr.astype(like.dtype)
                 src = torch.from_numpy(arr)
+                if placements is not None:
+                    from torch.distributed.tensor import distribute_tensor
+                    return distribute_tensor(
+                        src.to(device=mesh.device_type, dtype=like.dtype),
+                        mesh, pl_by_key[key])
                 if into:
                     with torch.no_grad():
                         like.copy_(src)

@@ -23,6 +23,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.sharding import is_dtensor
+
 MASKED_LOGIT = -1e30
 
 
@@ -39,7 +41,15 @@ def _nll_terms(lf: torch.Tensor, labels: torch.Tensor
     """(lse, label logit), both (B, T) float32, over masked f32 logits."""
     m = torch.amax(lf, dim=-1, keepdim=True)
     lse = torch.log(torch.sum(torch.exp(lf - m), dim=-1)) + m[..., 0]
-    label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        # vocab-sharded logits: the label column picked by a masked sum
+        # over the vocab (one nonzero term), which DTensor reduces across
+        # the shards, where a gather would need the whole row.
+        col = torch.arange(lf.shape[-1], device=lf.device)
+        label_logit = torch.sum(torch.where(
+            col == labels.long()[..., None], lf, 0.0), dim=-1)
+    else:
+        label_logit = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
     return lse, label_logit
 
 

@@ -23,6 +23,15 @@ Gradients are taken with respect to ``detach()``-ed aliases of the
 parameters that require grad, so the state's own tensors never carry
 autograd history, and the aliases (and their ``.grad``) are dropped
 after the update.
+
+Sharded: the same step runs on a state of DTensors
+(``repro_torch.distributed.sharding.distribute_tree`` at
+:func:`train_state_axes`) and a batch at :func:`batch_axes`, under
+``sharding_ctx``.  The gradients are pinned to the parameters'
+placements before the update (``_constrain_grads``, the reference's:
+DTensor's autograd leaves them partial or otherwise placed), so the
+moments and the update stay sharded as the parameters are; the metrics
+come back as plain (full) tensors.
 """
 from __future__ import annotations
 
@@ -31,8 +40,10 @@ from typing import Any, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed.sharding import is_dtensor, map_axes, shard
 from repro_torch.models import transformer as tf
-from repro_torch.models.params import init_params, leaves_with_paths, map_tree
+from repro_torch.models.params import (init_params, leaves_with_paths,
+                                       map_tree, param_axes)
 from repro_torch.train import losses
 from repro_torch.train.optimizer import (AdamWState, OptimizerConfig,
                                          adamw_update, init_opt_state)
@@ -54,6 +65,26 @@ def init_train_state(generator: torch.Generator, cfg: ArchConfig,
         getattr(torch, cfg.param_dtype)
     params = init_params(tf.model_specs(cfg), generator, device, dtype=dtype)
     return TrainState(params=params, opt=init_opt_state(params))
+
+
+def train_state_axes(cfg: ArchConfig) -> TrainState:
+    """The logical-axes tree mirroring a ``TrainState``: the moments
+    shard as the parameters do, the step is replicated."""
+    axes = param_axes(tf.model_specs(cfg))
+    return TrainState(params=axes, opt=AdamWState(step=(), m=axes, v=axes))
+
+
+def batch_axes(cfg: ArchConfig, accum: int = 1) -> Dict[str, tuple]:
+    """The logical axes of a training batch's leaves."""
+    lead = ("microbatch",) if accum > 1 else ()
+    ax = {"tokens": lead + ("act_batch", None),
+          "labels": lead + ("act_batch", None),
+          "loss_mask": lead + ("act_batch", None)}
+    if cfg.family == "vlm":
+        ax["pixel_embeds"] = lead + ("act_batch", None, None)
+    if cfg.family == "audio":
+        ax["audio_embeds"] = lead + ("act_batch", None, None)
+    return ax
 
 
 def _loss_fn(params, batch: Dict, cfg: ArchConfig, remat: bool
@@ -82,6 +113,10 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
                     accum: int = 1, remat: bool = True):
     """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
     is a dict of tensors on the state's device."""
+    grad_axes = param_axes(tf.model_specs(cfg))
+
+    def _constrain_grads(grads):
+        return map_axes(lambda ax, g: shard(g, ax), grad_axes, grads)
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -103,12 +138,14 @@ def make_train_step(cfg: ArchConfig, opt_cfg: OptimizerConfig,
                 h.remove()
         metrics = {k: torch.mean(torch.stack([m[k] for m in per_mb]))
                    for k in METRIC_KEYS} if accum > 1 else per_mb[0]
-        grads = map_tree(lambda _, p: p.grad if p.grad is not None
-                         else torch.zeros_like(p), train_p)
+        grads = _constrain_grads(map_tree(
+            lambda _, p: p.grad if p.grad is not None
+            else torch.zeros_like(p), train_p))
         del train_p, leaves
         _, _, opt_metrics = adamw_update(opt_cfg, state.params, grads,
                                          state.opt)
         metrics.update(opt_metrics)
-        return state, metrics
+        return state, {k: v.full_tensor() if is_dtensor(v) else v
+                       for k, v in metrics.items()}
 
     return train_step

@@ -1123,3 +1123,108 @@ def test_modality_golden_fixture_on_cuda(cuda, name):
     per_prefill = fixture.layers * (3 if name == "WHISPER" else 1)
     prefills = 1 + len(fixture.requests)
     assert flash.launches - before == per_prefill * prefills
+
+
+# --------------------------------------------------------------------------- #
+# the distributed layer on the card (NCCL, a world of 1)
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def nccl():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: NCCL has no CPU mode")
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed
+    dev = init_distributed()
+    assert dist.get_backend() == "nccl"
+    yield dev
+    dist.destroy_process_group()
+
+
+def _tiny_f32(name="deepseek-7b"):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(name, tiny=True), dtype="float32")
+
+
+def _kernel_launches():
+    return flash.launches + rglru.launches + mlstm.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["deepseek-7b", "deepseek-moe-16b",
+                                  "recurrentgemma-9b", "xlstm-125m"])
+def test_sharded_train_step_on_cuda_matches_cpu(nccl, name):
+    """A float32 TINY twin's step with its state distributed on a (1, 1)
+    CUDA mesh under ``sharding_ctx`` (the kernels under ``local_map``,
+    the MoE layer expert-parallel, the sLSTM's loop on local rows)
+    against the plain step on the CPU, within the CUDA-vs-CPU train
+    bounds; DeepSeek-7B launches flash twice a layer (remat)."""
+    from repro_torch.distributed.sharding import (ShardingCtx,
+                                                  distribute_tree, map_axes,
+                                                  rules_for, sharding_ctx)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import leaves_with_paths
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.golden import update_rel
+    from repro_torch.train.optimizer import OptimizerConfig
+    cfg = _tiny_f32(name)
+    cpu = ts.init_train_state(torch.Generator().manual_seed(0), cfg, "cpu")
+    p0 = {"/".join(map(str, k)): t.numpy().copy()
+          for k, t in leaves_with_paths(cpu.params)}
+    mesh = make_mesh((1, 1), ("data", "model"))
+    ctx = ShardingCtx(mesh, rules_for(cfg))
+    axes = ts.train_state_axes(cfg)
+    gpu = distribute_tree(
+        ctx, map_axes(lambda _, t: t.to(nccl), axes, cpu), axes)
+    step = ts.make_train_step(cfg, OptimizerConfig(warmup_steps=1))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(
+        cfg, DataConfig(batch_size=2, seq_len=32)).batch(0).items()}
+    cpu, mc = step(cpu, batch)
+    before = (flash.launches, _kernel_launches())
+    with sharding_ctx(mesh, ctx.rules):
+        gpu, mg = step(gpu, distribute_tree(
+            ctx, {k: v.to(nccl) for k, v in batch.items()},
+            ts.batch_axes(cfg)))
+    assert _kernel_launches() > before[1]
+    if name == "deepseek-7b":                     # remat: twice a layer
+        assert flash.launches - before[0] == 2 * cfg.num_layers
+    for k in ("loss", "grad_norm"):
+        assert float(mg[k]) == pytest.approx(float(mc[k]), rel=TRAIN_TOL[k])
+    want = {"/".join(map(str, k)): t.numpy()
+            for k, t in leaves_with_paths(cpu.params)}
+    got = {"/".join(map(str, k)): t.full_tensor().cpu().numpy()
+           for k, t in leaves_with_paths(gpu.params)}
+    assert update_rel(p0, want, got) <= TRAIN_TOL["update_rel"]
+
+
+@pytest.mark.gpu
+def test_psum_int8_on_nccl_equals_cpu(nccl):
+    """On a world of one the compressed sum is the int8 round trip, the
+    same numbers as the CPU computes."""
+    from repro_torch.distributed.compression import psum_int8, quantize_int8
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (33, 65)).astype(np.float32) * 3)
+    scale = torch.clamp_min(x.abs().amax(), 1e-30) / 127.0
+    want = quantize_int8(x, scale).to(torch.int32).float() * scale
+    assert torch.equal(psum_int8(x.to(nccl)).cpu(), want)
+
+
+@pytest.mark.gpu
+def test_restore_elastic_onto_cuda_mesh(nccl, tmp_path):
+    from repro_torch.distributed.elastic import restore_elastic
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.checkpoint import (CheckpointManager,
+                                              flatten_with_keys)
+    cfg = _tiny_f32()
+    state = ts.init_train_state(torch.Generator().manual_seed(0), cfg, "cpu")
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save(7, state)
+    restored, step, _ = restore_elastic(ckpt, cfg,
+                                        make_mesh((1, 1), ("data", "model")))
+    assert step == 7
+    for (k, a), (_, b) in zip(flatten_with_keys(restored),
+                              flatten_with_keys(state)):
+        assert a.device.type == "cuda"
+        assert torch.equal(a.full_tensor().cpu(), b), k
