@@ -238,7 +238,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on and off (relative gradient error under 0.02, the all-reduces and
    their bytes, the sync's ms); then ``CheckpointManager.save`` of the
    stepped state and ``restore_elastic`` onto the (1, 1) mesh, every
-   leaf's ``full_tensor()`` equal to the saved one.
+   leaf's ``full_tensor()`` equal to the saved one;
+30. dryrun — the production dry run (``repro_torch.launch.dryrun``)
+   against the card: phase 29's cell (DeepSeek-7B's widths at 2 layers,
+   2 x 2048 tokens, a (1, 1) mesh) runs one warm sharded step, whose
+   peak above what was allocated before the state and batch existed and
+   whose flash launches are recorded; the same cell's dry run, in a
+   process of its own on a fake world of 1, must estimate that peak
+   within 10 % and count as many flash calls as were launched (its
+   FLOPs over the step's time are printed as model TFLOP/s, with no
+   gate); DeepSeek-7B x train_4k and x decode_32k on a fake world of 256
+   and x train_4k on one of 512, each in a process of its own (the
+   512-rank one started before phase 29), must return ``ok`` with every
+   key, each per-card peak printed beside the card's memory.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -3276,6 +3288,7 @@ DIST_BATCH, DIST_SEQ = 2, 2048
 DIST_STEPS = 2
 DIST_SHARE_TOL = 1e-6          # sharded vs plain, share of a leaf's scale
 DIST_COMPRESS_REL = 0.02       # the reference's bound on the int8 sync
+DRYRUN_TIMEOUT_S = 600
 
 
 def _state_leaves(state):
@@ -3471,6 +3484,184 @@ def phase_distributed(torch, np, dev, smi: str) -> dict:
     return line
 
 
+DRYRUN_PEAK_TOL = 0.10        # estimated peak vs the measured one
+# Production cells run on fake worlds of 256 and 512 ranks.
+DRYRUN_CELLS = (("deepseek-7b", "train_4k", False),
+                ("deepseek-7b", "decode_32k", False),
+                ("deepseek-7b", "train_4k", True))
+DRYRUN_KEYS = {"memory": ("argument_bytes", "output_bytes", "temp_bytes",
+                          "peak_estimate_bytes"),
+               "cost": ("flops_per_device", "bytes_per_device"),
+               "collectives_per_device": ("all-gather", "all-reduce",
+                                          "reduce-scatter", "all-to-all",
+                                          "collective-permute", "total")}
+# One dry run in a process of its own (no NCCL group, no card): phase
+# 29's cell on a fake world of 1, or a production cell.
+_DRYRUN_CHILD = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from repro_torch.launch import dryrun, shapes
+arch, shape, multi = json.loads(sys.argv[2])
+if shape == "phase29":
+    seq, batch, layers = json.loads(sys.argv[3])
+    r = dryrun.run_cell(arch, shapes.ShapeSpec(shape, seq, batch, "train"),
+                        False, cfg_overrides={"num_layers": layers},
+                        mesh=((1, 1), ("data", "model")))
+else:
+    r = dryrun.run_cell(arch, shape, multi)
+print("DRYRUN " + json.dumps(r))
+"""
+
+
+def _dryrun_process(cell):
+    return subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_CHILD, str(ROOT / "src"),
+         json.dumps(cell), json.dumps([DIST_SEQ, DIST_BATCH, DIST_LAYERS])],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+
+
+def _dryrun_result(proc) -> dict:
+    try:
+        out, err = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise RuntimeError(f"dry-run process failed ({proc.returncode}):\n"
+                           + err[-3000:])
+    return json.loads(next(ln for ln in out.splitlines()
+                           if ln.startswith("DRYRUN "))[len("DRYRUN "):])
+
+
+def _dryrun_key(cell) -> str:
+    arch, shape, multi = cell
+    return f"{arch}|{shape}|{'multi' if multi else 'single'}"
+
+
+def start_dryruns(cells) -> dict:
+    """Start the dry runs of ``cells`` now, one process each; phase 30
+    collects them.  The 512-rank cell spends about two minutes of host
+    time in DTensor's first sharding propagations on a 3-D mesh, so
+    ``main`` starts it before phase 29, beside that phase's card work."""
+    return {_dryrun_key(c): _dryrun_process(c) for c in cells}
+
+
+def phase_dryrun(torch, np, dev, smi: str, started=None) -> dict:
+    """Phase 30: the dry run's accounting against the card (phase 29's
+    cell: one warm sharded step, its peak above what was allocated
+    before the state and batch, its flash launches) and the production
+    cells on fake worlds (see the module docstring); ``started`` holds
+    dry runs already running (:func:`start_dryruns`)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import (ShardingCtx,
+                                                  distribute_tree, rules_for,
+                                                  sharding_ctx)
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptimizerConfig
+    t_phase = time.perf_counter()
+    # the dry runs start first, one process each, and run on the host
+    # beside the card's step
+    procs = dict(started or {})
+    procs.update(start_dryruns([("deepseek-7b", "phase29", False)] + [
+        c for c in DRYRUN_CELLS if _dryrun_key(c) not in procs]))
+    procs["cell"] = procs.pop(_dryrun_key(("deepseek-7b", "phase29",
+                                           False)))
+    line = {"phase": "dryrun", "nvidia_smi": smi, "arch": "deepseek-7b",
+            "layers": DIST_LAYERS, "batch": DIST_BATCH, "seq_len": DIST_SEQ,
+            "mesh": [1, 1]}
+    root = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    try:
+        base = _free(torch)
+        init_distributed(dev, init_method=f"file://{os.path.join(root, 's')}")
+        mesh = make_mesh((1, 1), ("data", "model"), dev.type)
+        cfg = dataclasses.replace(get_config("deepseek-7b"),
+                                  num_layers=DIST_LAYERS)
+        ctx = ShardingCtx(mesh, rules_for(cfg))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        state = distribute_tree(ctx, ts.init_train_state(gen, cfg, dev),
+                                ts.train_state_axes(cfg))
+        data = SyntheticLM(cfg, DataConfig(batch_size=DIST_BATCH,
+                                           seq_len=DIST_SEQ, seed=0))
+        batch = distribute_tree(ctx, {k: torch.from_numpy(v).to(dev)
+                                      for k, v in data.batch(0).items()},
+                                ts.batch_axes(cfg))
+        step = ts.make_train_step(cfg, OptimizerConfig(warmup_steps=1))
+        with sharding_ctx(mesh, ctx.rules):
+            step(state, batch)                               # warm-up
+            _free(torch)
+            torch.cuda.reset_peak_memory_stats()
+            flash.launches = 0
+            _, ms = _synced_ms(torch, lambda: step(state, batch))
+        line.update(step_ms=ms, flash_launches=flash.launches,
+                    state_batch_bytes=_free(torch) - base,
+                    measured_peak_bytes=torch.cuda.max_memory_allocated()
+                    - base)
+        del state, batch
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    _free(torch)
+    try:
+        runs = {key: _dryrun_result(p) for key, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    cell = runs.pop("cell")
+    est = cell["memory"]["peak_estimate_bytes"]
+    line.update(
+        estimated_peak_bytes=est,
+        peak_rel_err=(est - line["measured_peak_bytes"])
+        / line["measured_peak_bytes"],
+        argument_bytes=cell["memory"]["argument_bytes"],
+        counted_flash_calls=cell["kernel_calls"].get("flash_attention", 0),
+        flops=cell["cost"]["flops_per_device"],
+        model_tflops_per_s=cell["cost"]["flops_per_device"]
+        / (line["step_ms"] * 1e-3) / 1e12,
+        dryrun_trace_s=cell["trace_s"])
+    card = torch.cuda.get_device_properties(0).total_memory
+    line["production"] = {key: {
+        "ok": r.get("ok"), "devices": r["devices"], "trace_s": r["trace_s"],
+        "peak_estimate_bytes": r["memory"]["peak_estimate_bytes"],
+        "card_bytes": card, "argument_bytes": r["memory"]["argument_bytes"],
+        "flops_per_device": r["cost"]["flops_per_device"],
+        "collectives_per_device": r["collectives_per_device"],
+        "missing": [f"{g}.{k}" for g, ks in DRYRUN_KEYS.items()
+                    for k in ks if k not in r.get(g, {})]
+        + [k for k in ("arch", "shape", "mesh", "devices", "ok", "tag",
+                       "trace_s", "ops") if k not in r]}
+        for key, r in runs.items()}
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    bad = []
+    if not abs(line["peak_rel_err"]) <= DRYRUN_PEAK_TOL:
+        bad.append(f"estimated peak {est} is {line['peak_rel_err']:+.3f} "
+                   f"of the measured {line['measured_peak_bytes']}")
+    if not 0 < line["counted_flash_calls"] == line["flash_launches"]:
+        bad.append(f"{line['counted_flash_calls']} flash calls counted, "
+                   f"{line['flash_launches']} launched")
+    if len(runs) != len(DRYRUN_CELLS):
+        bad.append(f"{len(runs)} production cells of {len(DRYRUN_CELLS)}")
+    for key, r in line["production"].items():
+        if r["ok"] is not True or r["missing"]:
+            bad.append(f"{key}: ok {r['ok']}, missing {r['missing']}")
+    if bad:
+        raise RuntimeError("dryrun phase: " + "; ".join(bad))
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3516,7 +3707,15 @@ def main() -> int:
     vg = phase_vlm_golden(torch, np, dev)
     vs = phase_internvl_serve_main(torch, np, dev)
     emit({"phase": "modality_phases", "seconds": time.perf_counter() - t0})
-    dp = phase_distributed(torch, np, dev, info["nvidia_smi"])
+    early = start_dryruns([c for c in DRYRUN_CELLS if c[2]])
+    try:
+        dp = phase_distributed(torch, np, dev, info["nvidia_smi"])
+        dr = phase_dryrun(torch, np, dev, info["nvidia_smi"], early)
+    finally:
+        for p in early.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -3620,7 +3819,8 @@ def main() -> int:
             "whisper_golden_float32": wg["flash_launches"],
             "internvl_serve": vs["launches"]["flash_attention"],
             "vlm_golden_float32": vg["flash_launches"],
-            "sharded_train": dp["sharded_flash_launches"]},
+            "sharded_train": dp["sharded_flash_launches"],
+            "dryrun_check": dr["flash_launches"]},
         "moe_shape": fl["moe_shape"],
         "command_r_shape": fl["command_r_shape"],
         "whisper_shapes": fl["whisper_shapes"],

@@ -20,7 +20,9 @@ its argument; under :func:`sharding_ctx` it redistributes a DTensor to
 the resolved placements and refuses a plain tensor, so nothing runs
 unsharded by accident.  :func:`local_call` runs a hand-written kernel on
 each rank's local shard (``local_map``), the torch form of the Pallas
-call inside ``shard_map``.
+call inside ``shard_map``; :func:`local_offsets` gives a rank's place in
+a DTensor, for writes into its own shard (the KV cache), and
+:func:`argmax_last` takes a vocab-split argmax shard by shard.
 """
 from __future__ import annotations
 
@@ -81,7 +83,8 @@ def mesh_sizes(mesh) -> Dict[str, int]:
     ``DeviceMesh``."""
     if isinstance(mesh, MeshShape):
         return dict(zip(mesh.axis_names, mesh.shape))
-    return dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    return dict(zip(mesh.mesh_dim_names,
+                    (mesh.size(i) for i in range(mesh.ndim))))
 
 
 def rules_for(cfg=None, rules: Optional[Dict[str, Tuple]] = None
@@ -292,6 +295,52 @@ def lookup_rows(table: torch.Tensor, index: torch.Tensor,
     whole = ctx.placements_for(table.shape, (None,) * table.dim())
     return local_run(lambda t, i: t[i], (table, index), (whole, idx_pl),
                      idx_pl)
+
+
+def local_offsets(t: torch.Tensor) -> List[int]:
+    """The global index of the first element of this rank's shard of the
+    DTensor ``t`` along each dim: a dim split over several mesh dims is
+    split in mesh order (row-major over their coordinates)."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    local = t.to_local().shape
+    index = [0] * t.dim()
+    for m, p in enumerate(t.placements):
+        if isinstance(p, Shard):
+            index[p.dim] = index[p.dim] * mesh.size(m) + coord[m]
+    return [i * n for i, n in zip(index, local)]
+
+
+def argmax_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.argmax(x, -1)``.  Under a sharding context, for a DTensor
+    split along its last dim, each rank takes the first largest value of
+    its shard and its global index (:func:`local_run`); the (value,
+    index) pairs of the shards are gathered and, on each rank, the first
+    largest wins, which is the first global maximum.  DTensor's own rule reads its
+    shard offsets back from a tensor, which fake tensors cannot give."""
+    ctx = current_ctx()
+    if ctx is None or not is_dtensor(x):
+        return torch.argmax(x, -1)
+    from torch.distributed.tensor import Replicate, Shard
+    last = x.dim() - 1
+    split = [isinstance(p, Shard) and p.dim == last for p in x.placements]
+    if not any(split):
+        return torch.argmax(x, -1)
+    offset = local_offsets(x)[last]
+
+    def local(xl):
+        val, idx = torch.max(xl, -1, keepdim=True)
+        return val, idx + offset
+
+    def pick(val, idx):
+        return torch.gather(idx, -1, torch.argmax(val, -1, keepdim=True))[
+            ..., 0]
+
+    pl = list(x.placements)
+    val, idx = local_run(local, (x.detach(),), (pl,), (pl, pl))
+    whole = [Replicate() if s else p for s, p in zip(split, pl)]
+    return local_run(pick, (val, idx), (whole, whole), whole)
 
 
 def splittable(y: torch.Tensor, dim: int, n: int) -> torch.Tensor:

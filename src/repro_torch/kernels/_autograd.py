@@ -8,7 +8,8 @@ the plain version on CPU tensors) inside a ``torch.autograd.Function``
 whose backward recomputes the plain version on the same device and
 returns ``torch.autograd.grad`` of it.  A wrapper calls :func:`apply`
 only when :func:`wants_grad` holds, so serving and forecasting (grad off,
-or no input requiring grad) call the kernel directly and pay nothing.
+or no input requiring grad) call the kernel's registered op
+(``_ops.define``) directly and pay nothing.
 Each backward runs inside a ``torch.profiler.record_function`` range
 named ``PLAIN_BACKWARD``.
 """

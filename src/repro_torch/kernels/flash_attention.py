@@ -32,6 +32,12 @@ differentiates ``flash_attention_plain`` recomputed on the same device
 (it holds the full (T, S) logits: a training-size backward, not a
 kernel).
 
+The entry point is the registered op ``torch.ops.repro_torch.
+flash_attention`` (``_ops.define``): the dispatcher sends CUDA tensors
+to the kernel, CPU tensors to the plain version and fake tensors to
+:func:`_flash_fake`; :func:`flash_flops` and :func:`flash_bytes` count
+its work, the visible (query, key) pairs only.
+
 ``launches`` counts kernel launches (forward only), so a run can show
 that it went through the kernel.
 """
@@ -41,10 +47,11 @@ import ctypes
 import functools
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _autograd
+from repro_torch.kernels import _autograd, _ops
 
 NEG_INF = -2.0 ** 30
 MAX_HEAD_DIM = 256
@@ -85,20 +92,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention: the CUDA kernel on CUDA tensors, the plain version on
     CPU tensors.  Arguments and result as :func:`flash_attention_plain`."""
-    opts = dict(causal=causal, window=window, sm_scale=sm_scale)
+    scale = q.shape[-1] ** -0.5 if sm_scale is None else float(sm_scale)
+    args = (bool(causal), int(window), scale)
     if _autograd.wants_grad(q, k, v):
         return _autograd.apply(
-            lambda q, k, v: (_flash_attention(q, k, v, **opts),),
-            lambda q, k, v: (flash_attention_plain(q, k, v, **opts),),
+            lambda q, k, v: (FLASH_OP(q, k, v, *args),),
+            lambda q, k, v: (flash_attention_plain(
+                q, k, v, causal=causal, window=window, sm_scale=scale),),
             (q, k, v))[0]
-    return _flash_attention(q, k, v, **opts)
+    return FLASH_OP(q, k, v, *args)
 
 
-def _flash_attention(q, k, v, *, causal, window, sm_scale):
-    if all(t.device.type == "cpu" for t in (q, k, v)):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     sm_scale=sm_scale)
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int, sm_scale: float) -> torch.Tensor:
     return _flash_attention_cuda(q, k, v, causal, window, sm_scale)
+
+
+def _flash_cpu(q, k, v, causal, window, sm_scale):
+    return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                 sm_scale=sm_scale)
+
+
+def _flash_fake(q, k, v, causal, window, sm_scale):
+    return torch.empty_like(q)
+
+
+def visible_pairs(T: int, S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs the mask leaves visible in one head."""
+    i = np.arange(T, dtype=np.int64)
+    hi = np.minimum(i, S - 1) if causal else np.full(T, S - 1, np.int64)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_flops(q, k, v, causal, window, sm_scale) -> int:
+    """q.k and p.v over the visible pairs: 4 operations a pair and head
+    dim (``PERF.md`` §6)."""
+    B, Hq, T, hd = q.shape
+    return B * Hq * visible_pairs(T, k.shape[2], causal, window) * 4 * hd
+
+
+def flash_bytes(q, k, v, causal, window, sm_scale) -> int:
+    """q, k, v read once and the output written once."""
+    return _ops.tensor_bytes(q, k, v) + _ops.tensor_bytes(q)
+
+
+FLASH_OP = _ops.define("flash_attention", _flash_cuda, _flash_cpu,
+                       _flash_fake, flash_flops, flash_bytes)
 
 
 @functools.cache

@@ -34,6 +34,13 @@ With grad enabled and an input that requires grad, the call goes
 through ``_autograd.apply``: the same forward, and a backward that
 differentiates ``mlstm_chunkwise_plain`` recomputed on the same device.
 
+The entry point is the registered op ``torch.ops.repro_torch.
+mlstm_chunkwise`` (``_ops.define``): the dispatcher sends CUDA tensors
+to the kernels, CPU tensors to the plain version and fake tensors to
+:func:`_mlstm_fake`, which allocates the parallel kernel's scratch where
+the card would; :func:`mlstm_flops` and :func:`mlstm_bytes` count its
+work.
+
 ``launches`` counts CUDA calls of any of the kernels (forward only),
 ``row_launches`` and ``parallel_launches`` those of the row and the
 parallel kernel, so a run can show which kernel it went through.
@@ -42,13 +49,13 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import _build
-from repro_torch.kernels import _autograd
+from repro_torch.kernels import _autograd, _ops
 
 DEFAULT_CHUNK = 64
 MAX_CHUNK = 64          # the kernel's limits (shared memory per block)
@@ -242,8 +249,7 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, state: Optional[State] = None,
     :func:`mlstm_chunkwise_plain`."""
     inputs = (q, k, v, i_raw, f_raw) + tuple(state or (None,) * 3)
     if not _autograd.wants_grad(*inputs):
-        return _unflatten(_flat(*inputs, chunk=chunk,
-                                return_state=return_state))
+        return _unflatten(MLSTM_OP(*inputs, chunk, return_state))
 
     def plain(*inputs):
         h, s = mlstm_chunkwise_plain(*inputs[:5], state=_state(inputs),
@@ -251,28 +257,102 @@ def mlstm_chunkwise(q, k, v, i_raw, f_raw, state: Optional[State] = None,
         return (h,) + tuple(s or ())
 
     return _unflatten(_autograd.apply(
-        lambda *x: _flat(*x, chunk=chunk, return_state=return_state),
-        plain, inputs))
+        lambda *x: tuple(MLSTM_OP(*x, chunk, return_state)), plain, inputs))
 
 
 def _state(inputs) -> Optional[State]:
     return None if inputs[5] is None else tuple(inputs[5:])
 
 
-def _flat(*inputs, chunk, return_state):
-    """The forward on eight tensor slots (q, k, v, i, f, C0, n0, m0; the
-    state slots None without a state) -> (h,) or (h, C, n, m)."""
-    state = _state(inputs)
-    if all(t.device.type == "cpu" for t in inputs if t is not None):
-        h, s = mlstm_chunkwise_plain(*inputs[:5], state=state, chunk=chunk,
-                                     return_state=return_state)
-    else:
-        h, s = _mlstm_chunkwise_cuda(*inputs[:5], state, chunk, return_state)
-    return (h,) + tuple(s or ())
-
-
 def _unflatten(out):
     return out[0], (tuple(out[1:]) if len(out) > 1 else None)
+
+
+def _mlstm_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                i_raw: torch.Tensor, f_raw: torch.Tensor,
+                C0: Optional[torch.Tensor], n0: Optional[torch.Tensor],
+                m0: Optional[torch.Tensor], chunk: int,
+                return_state: bool) -> List[torch.Tensor]:
+    """The op on eight tensor slots (the state slots None without a
+    state) -> [h] or [h, C, n, m]."""
+    inputs = (q, k, v, i_raw, f_raw, C0, n0, m0)
+    h, s = _mlstm_chunkwise_cuda(*inputs[:5], _state(inputs), chunk,
+                                 return_state)
+    return [h, *(s or ())]
+
+
+def _mlstm_cpu(q, k, v, i_raw, f_raw, C0, n0, m0, chunk, return_state):
+    inputs = (q, k, v, i_raw, f_raw, C0, n0, m0)
+    h, s = mlstm_chunkwise_plain(*inputs[:5], state=_state(inputs),
+                                 chunk=chunk, return_state=return_state)
+    return [h, *(s or ())]
+
+
+def _mlstm_fake(q, k, v, i_raw, f_raw, C0, n0, m0, chunk, return_state):
+    """The CUDA route's outputs, and the parallel kernel's scratch where
+    its envelope takes the call (fake tensors are taken as aligned)."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    L = _chunk_len(T, chunk)
+    out = [torch.empty((B, H, T, dv), dtype=q.dtype, device=q.device)]
+    if return_state:
+        out += _state_out(B, H, dk, dv, q.device)
+    if takes_parallel_kernel(L, dk, dv, q.dtype):
+        # held beside the outputs until the call returns, as on the card
+        scratch = _parallel_scratch(B, H, T, L, dk, dv, q.device)
+        del scratch
+    return out
+
+
+def _state_out(B, H, dk, dv, device) -> List[torch.Tensor]:
+    f32 = torch.float32
+    return [torch.empty((B, H, dk, dv), dtype=f32, device=device),
+            torch.empty((B, H, dk), dtype=f32, device=device),
+            torch.empty((B, H), dtype=f32, device=device)]
+
+
+def _parallel_scratch(B, H, T, L, dk, dv, device) -> Tuple[torch.Tensor, ...]:
+    """The parallel kernel's scratch: the states entering each chunk (C
+    as bfloat16 hi and lo tiles per 64 columns, n and m in float32) and
+    the gate pass's w and (g, max w)."""
+    NC = T // L
+    f32 = torch.float32
+    return (torch.empty(B * H * NC * dv * 2 * dk, dtype=torch.bfloat16,
+                        device=device),
+            torch.empty(B * H * NC * dk, dtype=f32, device=device),
+            torch.empty(B * H * NC, dtype=f32, device=device),
+            torch.empty(B * H * (T + 2 * NC), dtype=f32, device=device))
+
+
+def mlstm_flops(q, k, v, i_raw, f_raw, C0, n0, m0, chunk,
+                return_state) -> int:
+    """The products q.k and (S o qk).v over the pairs j <= i of each
+    chunk, q.C and the C update between chunks, the first chunk's q.C
+    with a state in and the last chunk's update with the state out
+    (``PERF.md`` §6, ``chip_smoke._mlstm_work``)."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    L = _chunk_len(T, chunk)
+    NC = T // L
+    per_state = B * H * 2 * L * dk * dv
+    ops = B * H * NC * 2 * (L * (L + 1) // 2) * (dk + dv)
+    ops += per_state * 2 * (NC - 1)
+    return ops + per_state * ((C0 is not None) + bool(return_state))
+
+
+def mlstm_bytes(q, k, v, i_raw, f_raw, C0, n0, m0, chunk,
+                return_state) -> int:
+    """Every input read once, h and the state out written once."""
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    out = B * H * T * dv * q.element_size()
+    if return_state:
+        out += B * H * (dk * dv + dk + 1) * 4
+    return _ops.tensor_bytes(q, k, v, i_raw, f_raw, C0, n0, m0) + out
+
+
+MLSTM_OP = _ops.define("mlstm_chunkwise", _mlstm_cuda, _mlstm_cpu,
+                       _mlstm_fake, mlstm_flops, mlstm_bytes)
 
 
 @functools.cache
@@ -394,12 +474,8 @@ def _mlstm_chunkwise_cuda(q, k, v, i_raw, f_raw, state, chunk,
         raise ValueError("mlstm_chunkwise: every tensor must lie on one CUDA "
                          f"device, got {[str(t.device) for t in inputs]}")
     h = torch.empty((B, H, T, dv), dtype=q.dtype, device=dev)
-    out_state = None
-    if return_state:
-        out_state = (torch.empty((B, H, dk, dv), dtype=torch.float32,
-                                 device=dev),
-                     torch.empty((B, H, dk), dtype=torch.float32, device=dev),
-                     torch.empty((B, H), dtype=torch.float32, device=dev))
+    out_state = tuple(_state_out(B, H, dk, dv, dev)) if return_state \
+        else None
     if B * H == 0:
         return h, out_state
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
@@ -408,17 +484,7 @@ def _mlstm_chunkwise_cuda(q, k, v, i_raw, f_raw, state, chunk,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if kernel == "parallel":
-            # The states entering each chunk (C as bfloat16 hi and lo
-            # tiles per 64 columns, n and m in float32) and the gate pass's
-            # w and (g, max w).
-            NC = T // L
-            f32 = torch.float32
-            scratch = (torch.empty(B * H * NC * dv * 2 * dk,
-                                   dtype=torch.bfloat16, device=dev),
-                       torch.empty(B * H * NC * dk, dtype=f32, device=dev),
-                       torch.empty(B * H * NC, dtype=f32, device=dev),
-                       torch.empty(B * H * (T + 2 * NC), dtype=f32,
-                                   device=dev))
+            scratch = _parallel_scratch(B, H, T, L, dk, dv, dev)
             rc = _parallel_kernel()(
                 *(ptr(t) for t in inputs), *(ptr(t) for t in s_in), ptr(h),
                 *(ptr(t) for t in s_out), *(ptr(t) for t in scratch),

@@ -17,6 +17,12 @@ With grad enabled and an input that requires grad, the call goes
 through ``_autograd.apply``: the same forward, and a backward that
 differentiates ``rglru_scan_plain`` recomputed on the same device.
 
+The entry point is the registered op ``torch.ops.repro_torch.
+rglru_scan`` (``_ops.define``): the dispatcher sends CUDA tensors to the
+kernels, CPU tensors to the plain version and fake tensors to
+:func:`_rglru_fake`; :func:`rglru_flops` and :func:`rglru_bytes` count
+its work.
+
 ``launches`` counts kernel launches (forward only), and
 ``chunked_launches`` those of the chunked kernel, so a run can show which
 kernels it went through.
@@ -30,7 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch import _build
-from repro_torch.kernels import _autograd
+from repro_torch.kernels import _autograd, _ops
 
 launches = 0
 chunked_launches = 0
@@ -57,17 +63,35 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     """The RG-LRU recurrence: the CUDA kernel on CUDA tensors, the plain
     version on CPU tensors.  Arguments and result as
     :func:`rglru_scan_plain`."""
+    out_dtype = out_dtype or a.dtype
     if _autograd.wants_grad(a, b):
         return _autograd.apply(
-            lambda a, b: (_rglru_scan(a, b, out_dtype),),
+            lambda a, b: (RGLRU_OP(a, b, out_dtype),),
             lambda a, b: (rglru_scan_plain(a, b, out_dtype),), (a, b))[0]
-    return _rglru_scan(a, b, out_dtype)
+    return RGLRU_OP(a, b, out_dtype)
 
 
-def _rglru_scan(a, b, out_dtype):
-    if a.device.type == "cpu" and b.device.type == "cpu":
-        return rglru_scan_plain(a, b, out_dtype)
-    return _rglru_scan_cuda(a, b, out_dtype or a.dtype)
+def _rglru_cuda(a: torch.Tensor, b: torch.Tensor,
+                out_dtype: torch.dtype) -> torch.Tensor:
+    return _rglru_scan_cuda(a, b, out_dtype)
+
+
+def _rglru_fake(a, b, out_dtype):
+    return torch.empty(a.shape, dtype=out_dtype, device=a.device)
+
+
+def rglru_flops(a, b, out_dtype) -> int:
+    """A multiply and an add per element."""
+    return 2 * a.numel()
+
+
+def rglru_bytes(a, b, out_dtype) -> int:
+    """a and b read once, h written once in ``out_dtype``."""
+    return _ops.tensor_bytes(a, b) + a.numel() * out_dtype.itemsize
+
+
+RGLRU_OP = _ops.define("rglru_scan", _rglru_cuda, rglru_scan_plain,
+                       _rglru_fake, rglru_flops, rglru_bytes)
 
 
 def takes_chunked_kernel(a: torch.Tensor) -> bool:

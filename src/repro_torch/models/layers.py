@@ -55,9 +55,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import NOT_PORTED, ArchConfig
-from repro_torch.distributed.sharding import (current_ctx, local_call,
-                                              merge_dims, shard,
-                                              unflatten_last)
+from repro_torch.distributed.sharding import (current_ctx, is_dtensor,
+                                              local_call, local_offsets,
+                                              local_run, merge_dims, shard,
+                                              splittable, unflatten_last)
 from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
 from repro_torch.models.params import ParamSpec
 
@@ -251,7 +252,11 @@ def attention_from_qkv(q, k, v, *, causal: bool = True, window: int = 0,
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
         pad = (0, 0, 0, pad_heads_to - n_heads)
-        q, k, v = (F.pad(t, pad) for t in (q, k, v))
+        # on each rank's batch rows, all heads (a DTensor pad of the
+        # heads dim trips torch 2.11's redistribution planner)
+        rows = ("act_batch", None, None, None)
+        q, k, v = (local_call(F.pad, (t,), (rows,), rows, pad=pad)
+                   for t in (q, k, v))
     q_axes = ("act_batch", "act_q_seq", "act_heads", None)
     kv_axes = ("act_batch", None, "act_heads" if k.shape[2] == q.shape[2]
                else "act_kv_heads", None)
@@ -368,54 +373,182 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     scale are rounded to bfloat16 **whatever the activation dtype**, then
     summed against the int8 payload in float32.  The payload is read in
     the activation dtype (int8 is exact in bfloat16), never as a float32
-    copy of the cache."""
+    copy of the cache.
+
+    Under a sharding context (a cache of DTensors, ``pos`` one scalar for
+    a uniform wave or per example) each rank writes the new token into
+    its own shard (:func:`write_token`) and attends over it
+    (:func:`_decode_core_local`)."""
     check_ported(cfg)
     B, T, _ = x.shape
     if T != 1:
         raise ValueError("decode_attention processes one new token")
-    pos = cache["pos"]                                   # (B,) per example
-    q, k_new, v_new = _project_qkv(p, x, cfg, pos.reshape(B, 1), use_rope)
+    pos = cache["pos"]                 # (B,) per example, or () uniform
+    positions = pos.reshape(B, 1) if pos.dim() else \
+        pos.reshape(1, 1).expand(B, 1)
+    q, k_new, v_new = _project_qkv(p, x, cfg, positions, use_rope)
     Kv, G, hd = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_
     k, v = cache["k"], cache["v"]
     S = k.shape[2]
     slot = torch.remainder(pos, S) if window > 0 else \
         torch.clamp_max(pos, S - 1)
-    rows, slot = torch.arange(B, device=x.device), slot.long()
+    news = {"k": k_new[:, 0], "v": v_new[:, 0]}
     if cfg.kv_quant:
-        for name, new in (("k", k_new), ("v", v_new)):
-            payload, scale = quantize_kv(new[:, 0])      # (B,Kv,hd), (B,Kv)
-            cache[name][rows, :, slot] = payload
-            cache[f"{name}_scale"][rows, :, slot] = scale
+        for name in ("k", "v"):                          # (B,Kv,hd), (B,Kv)
+            news[name], news[f"{name}_scale"] = quantize_kv(news[name])
+    sharded = current_ctx() is not None
+    if not sharded:
+        rows, slot = torch.arange(B, device=x.device), slot.long()
+        for name, new in news.items():
+            cache[name][rows, :, slot] = new.to(cache[name].dtype)
     else:
-        k[rows, :, slot] = k_new[:, 0].to(k.dtype)
-        v[rows, :, slot] = v_new[:, 0].to(v.dtype)
+        for name, new in news.items():
+            write_token(cache[name], new, slot)
     k, v = shard(cache["k"], CACHE_AXES), shard(cache["v"], CACHE_AXES)
 
-    qg = q.reshape(B, Kv, G, hd)
-    if cfg.kv_quant:
-        scores = _dot_f32(qg, k.to(q.dtype).transpose(-1, -2))
-        scores = scores * cache["k_scale"].float()[:, :, None, :]
+    qg = splittable(q, 2, Kv).reshape(B, Kv, G, hd)
+    scales = (cache["k_scale"], cache["v_scale"]) if cfg.kv_quant else \
+        (None, None)
+    if not sharded:
+        scores = _decode_scores(qg, k, scales[0], pos, window, S)
+        w = torch.softmax(scores, dim=-1)
+        out = _decode_weighted(w, v, scales[1], x.dtype)
+    else:
+        out = _decode_core_local(qg, k, v, scales, pos, window, x.dtype)
+    out = out.reshape(B, 1, cfg.num_heads, hd)
+    pos.add_(1)
+    return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES), cache
+
+
+def _decode_scores(qg, k, k_scale, pos, window: int, S: int, s0: int = 0,
+                   rows: Optional[slice] = None) -> torch.Tensor:
+    """The masked logits (B, Kv, G, S') of one token's grouped queries
+    against cache slots ``s0 .. s0 + S'`` of a cache of ``S`` (a rank's
+    part of it, rows ``rows`` of ``pos``), float32.  With ``k_scale``
+    (int8 cache) the logits are ``q . k8`` times the key's scale."""
+    if k_scale is not None:
+        scores = _dot_f32(qg, k.to(qg.dtype).transpose(-1, -2))
+        scores = scores * k_scale.float()[:, :, None, :]
     else:
         scores = torch.einsum("bkgh,bksh->bkgs", qg.float(), k.float())
-    slot_ids = torch.arange(S, dtype=torch.int32, device=x.device)
-    pb = pos.reshape(B, 1)
+    slot_ids = torch.arange(s0, s0 + k.shape[2], dtype=torch.int32,
+                            device=qg.device)
+    pb = pos.reshape(-1, 1)                  # (B, 1), or (1, 1) uniform
+    if rows is not None:
+        pb = pb[rows]
     if window > 0:
         # slot i holds global position p_i = pos - ((pos - i) mod S);
         # valid slots cover (pos - S, pos].
         valid = pb - torch.remainder(pb - slot_ids[None, :], S) >= 0
     else:
         valid = slot_ids[None, :] <= pb
-    scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+    return scores.masked_fill(~valid[:, None, None, :], NEG_INF)
+
+
+def _decode_weighted(w, v, v_scale, dt) -> torch.Tensor:
+    """The softmax weights (B, Kv, G, S) against v (B, Kv, S, hd), in
+    ``dt``; with ``v_scale`` (int8 cache) the weights times the value's
+    scale are rounded to bfloat16 **whatever the activation dtype**, as
+    the reference rounds, and summed against the payload in float32."""
+    if v_scale is not None:
+        w = (w * v_scale.float()[:, :, None, :]).to(torch.bfloat16)
+        return _dot_f32(w, v.to(torch.bfloat16)).to(dt)
+    return torch.einsum("bkgs,bksh->bkgh", w.to(dt), v)
+
+
+def _decode_core_local(qg, k, v, scales, pos, window: int, dt):
+    """:func:`_decode_scores`, softmax and :func:`_decode_weighted` on
+    DTensors: the logits and the weighted sum run on each rank's shard
+    of the cache (``local_run``), and where the cache's slots are split
+    the weights are gathered whole for the softmax and each rank's part
+    of the sum is reduced (``Partial``), flash-decode style, so that the
+    cache never moves."""
+    from torch.distributed.tensor import Partial, Shard
+    cache_pl = list(k.placements)
+    q_pl = _shard_split(k)
+    s_pl = [Shard(3) if isinstance(p, Shard) and p.dim == 2 else p
+            for p in cache_pl]
+    out_pl = [Partial() if isinstance(c, Shard) and c.dim == 2 else p
+              for c, p in zip(cache_pl, q_pl)]
+    b0, _, s0 = local_offsets(k)[:3]
+    S = k.shape[2]
+    pos = pos.full_tensor() if is_dtensor(pos) else pos
+    k_scale, v_scale = scales
+    n_rows = k.to_local().shape[0]
+    rows = slice(b0, b0 + n_rows) if pos.dim() else None
+
+    def scores_fn(q_l, k_l, *ks):
+        return _decode_scores(q_l, k_l, ks[0] if ks else None, pos, window,
+                              S, s0, rows)
+    extra = (k_scale,) if k_scale is not None else ()
+    scores = local_run(scores_fn, (qg, k) + extra,
+                       (q_pl, cache_pl) + (cache_pl,) * len(extra), s_pl)
     w = torch.softmax(scores, dim=-1)
-    if cfg.kv_quant:
-        # bfloat16 even for float32 activations, as the reference rounds
-        w = (w * cache["v_scale"].float()[:, :, None, :]).to(torch.bfloat16)
-        out = _dot_f32(w, v.to(torch.bfloat16)).to(x.dtype)
-    else:
-        out = torch.einsum("bkgs,bksh->bkgh", w.to(q.dtype), v)
-    out = out.reshape(B, 1, cfg.num_heads, hd)
-    pos.add_(1)
-    return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES), cache
+
+    def weighted_fn(w_l, v_l, *vs):
+        return _decode_weighted(w_l, v_l, vs[0] if vs else None, dt)
+    extra = (v_scale,) if v_scale is not None else ()
+    return local_run(weighted_fn, (w, v) + extra,
+                     (s_pl, cache_pl) + (cache_pl,) * len(extra), out_pl)
+
+
+def _shard_split(buf: torch.Tensor) -> list:
+    """The placements that give a tensor laid out as the DTensor cache
+    ``buf`` (B, Kv, S, ...) without its sequence dim the same batch and
+    head split, whole on every rank along the mesh dims that split S."""
+    from torch.distributed.tensor import Replicate, Shard
+    return [p if isinstance(p, Shard) and p.dim < 2 else Replicate()
+            for p in buf.placements]
+
+
+def write_token(buf: torch.Tensor, new: torch.Tensor,
+                slot: torch.Tensor) -> None:
+    """``buf[b, :, slot[b]] = new[b]`` on each rank's shard of the
+    DTensor cache ``buf`` (B, Kv, S, ...), in place: ``new`` (B, Kv,
+    ...) is brought to the cache's batch and head split, ``slot`` holds
+    the global slots (B,), or one for every row.  A rank writes the rows
+    whose slot lies in its part of the sequence and writes back what the
+    others hold there, so that no shape depends on the data."""
+    val = new.redistribute(buf.device_mesh, _shard_split(buf)).to_local()
+    slot = slot.full_tensor() if is_dtensor(slot) else slot
+    local = buf.to_local()
+    b0, _, s0 = local_offsets(buf)[:3]
+    n_rows, n_slots = local.shape[0], local.shape[2]
+    at = slot.long().expand(buf.shape[0])[b0:b0 + n_rows] - s0
+    inside = ((at >= 0) & (at < n_slots)).reshape(
+        (n_rows,) + (1,) * (val.dim() - 1))
+    at = at.clamp(0, n_slots - 1)
+    rows = torch.arange(n_rows, device=local.device)
+    held = local[rows, :, at]
+    local[rows, :, at] = torch.where(inside, val.to(local.dtype), held)
+
+
+def fill_prefix(buf: torch.Tensor, val: torch.Tensor) -> None:
+    """``buf[:, :, :n] = val`` (n = val's length along dim 2) on each
+    rank's shard of the DTensor cache ``buf``, in place; ``val`` is
+    brought to the cache's batch and head split, whole along dim 2."""
+    val = val.redistribute(buf.device_mesh, _shard_split(buf)).to_local()
+    local = buf.to_local()
+    s0 = local_offsets(buf)[2]
+    n = min(max(val.shape[2] - s0, 0), local.shape[2])
+    if n:
+        local[:, :, :n] = val[:, :, s0:s0 + n]
+
+
+def sharded_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
+                     window: int = 0, dtype=torch.bfloat16
+                     ) -> Dict[str, torch.Tensor]:
+    """:func:`init_kv_cache` as DTensors on the sharding context's mesh:
+    each rank makes only its shard, the payloads and scales at
+    :data:`CACHE_AXES`, the per-example positions (B,) whole on every
+    rank."""
+    from torch.distributed.tensor import zeros
+    ctx = current_ctx()
+    axes = dict(cache_axes(cfg.kv_quant), pos=(None,))
+    return {name: zeros(t.shape, dtype=t.dtype, device_mesh=ctx.mesh,
+                        placements=ctx.placements_for(t.shape, axes[name]))
+            for name, t in init_kv_cache(cfg, batch, max_len, window, dtype,
+                                         device="meta").items()}
 
 
 # ----------------------------- cross attention ------------------------------- #
@@ -459,13 +592,23 @@ def cross_attention(p, x: torch.Tensor, cfg: ArchConfig,
         out = attention_from_qkv(q, k, v, causal=False)
     else:
         Kv, G, hd = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_
-        qg = q.reshape(B, Kv, G, hd)
-        scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
-        w = torch.softmax(scores, dim=-1).to(dt)
-        w = shard(w, ("act_batch", "act_kv_heads", None, None))
-        out = torch.einsum("bkgs,bskh->bkgh", w, v).reshape(
-            B, 1, cfg.num_heads, hd)
+        qg = splittable(q, 2, Kv).reshape(B, Kv, G, hd)
+        grouped = ("act_batch", "act_kv_heads", None, None)
+        enc = ("act_batch", None, "act_kv_heads", None)
+        out = local_call(_cross_decode, (qg, k, v), (grouped, enc, enc),
+                         grouped, dt=dt).reshape(B, 1, cfg.num_heads, hd)
     return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES)
+
+
+def _cross_decode(qg, k, v, dt):
+    """One token's grouped queries (B, Kv, G, hd) against the encoder's
+    k, v (B, S, Kv, hd): float32 logits and softmax, the weights rounded
+    to ``dt``.  Under a sharding context it runs on each rank's batch
+    rows and kv heads (``local_call``), where the weights carry the
+    reference's (act_batch, act_kv_heads) constraint."""
+    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
+    w = torch.softmax(scores, dim=-1).to(dt)
+    return torch.einsum("bkgs,bskh->bkgh", w, v)
 
 
 # --------------------------------------------------------------------------- #

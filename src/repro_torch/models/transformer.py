@@ -343,15 +343,23 @@ def _attention_prefill(blk: BlockSpec, p, h, cfg: ArchConfig, positions,
     B, S, _ = h.shape
     window = _window(blk, cfg)
     q, k, v = layers._project_qkv(p, h, cfg, positions, cfg.use_rope)
-    state = layers.init_kv_cache(cfg, B, cache_len, window=window,
-                                 dtype=h.dtype, device=h.device)
     kc, vc = k.transpose(1, 2), v.transpose(1, 2)    # (B, Kv, S, hd)
     scales = {}
     if cfg.kv_quant:
         (kc, scales["k_scale"]), (vc, scales["v_scale"]) = (
             layers.quantize_kv(kc), layers.quantize_kv(vc))
+    sharded = current_ctx() is not None
+    if sharded:
+        state = layers.sharded_kv_cache(cfg, B, cache_len, window=window,
+                                        dtype=h.dtype)
+    else:
+        state = layers.init_kv_cache(cfg, B, cache_len, window=window,
+                                     dtype=h.dtype, device=h.device)
     W = state["k"].shape[2]
-    if window > 0 and S > W:
+    if sharded:
+        _fill_sharded_cache(state, {"k": kc, "v": vc, **scales}, S, W,
+                            window)
+    elif window > 0 and S > W:
         # ring write of the last W positions, split at the wrap point.
         # The reference writes only the payloads here (transformer.py:
         # 255-262): with kv_quant the scales of such a layer stay 0.
@@ -372,6 +380,25 @@ def _attention_prefill(blk: BlockSpec, p, h, cfg: ArchConfig, positions,
     out = layers.attention_from_qkv(q, k, v, causal=True, window=window,
                                     pad_heads_to=cfg.pad_heads_to)
     return layers._out_proj(out, p["w_o"]), state
+
+
+def _fill_sharded_cache(state: Dict, vals: Dict, S: int, W: int,
+                        window: int) -> None:
+    """The prompt's k, v (and int8 scales) into the DTensor cache
+    ``state`` on each rank's shard (``layers.fill_prefix``), as the
+    single-device branch writes them: a ring keeps the last W positions
+    from slot ``(S - W) % W`` on and, as the reference, not their
+    scales."""
+    if S > W and window <= 0:
+        raise ValueError(f"prompt of {S} tokens exceeds the cache of {W}")
+    for name, val in vals.items():
+        if S > W:
+            if name.endswith("_scale"):
+                continue
+            first = W - (S - W) % W
+            tail = val[:, :, S - W:]
+            val = torch.cat([tail[:, :, first:], tail[:, :, :first]], 2)
+        layers.fill_prefix(state[name], val)
 
 
 def apply_block_decode(blk: BlockSpec, p, x, cfg: ArchConfig, state: Dict
@@ -544,6 +571,8 @@ def _cache_pos(states: List) -> torch.Tensor:
         for st in seg_states.values():
             if "pos" in st:
                 p = st["pos"]
+                if p.dim() == 0:                 # a uniform wave
+                    return p.reshape(1)
                 return p[0] if p.dim() > 1 else p[:1]
     raise ValueError("no attention cache in the decode state")
 

@@ -241,12 +241,18 @@ def _slstm_cell(gates: torch.Tensor, state: SLSTMState) -> SLSTMState:
 
 
 def _slstm_gx(p, x: torch.Tensor) -> torch.Tensor:
-    """The input part of the gates, ``x @ w_x``: (..., D) -> (..., 4, D).
-    Under a sharding context ``w_x``'s output dim is gathered first:
-    the product views (4, D) as one dim, which DTensor refuses while
-    its trailing part is split."""
-    w = shard(p["w_x"], ("embed", None, None))
-    return torch.einsum("...d,dgk->...gk", x, w.to(x.dtype))
+    """The input part of the gates, ``x @ w_x``: (B, [T,] D) -> (B, [T,]
+    4, D).  Under a sharding context the product runs on each rank's
+    batch rows against ``w_x`` whole (``local_call``): the einsum views
+    (4, D) as one dim, which DTensor refuses while that dim is split."""
+    rows = ("act_batch",) + (None,) * (x.dim() - 1)
+    return local_call(_gx, (x, p["w_x"]), (rows, (None,) * 3),
+                      (rows + (None,),), out_shapes=(
+                          tuple(x.shape[:-1]) + p["w_x"].shape[1:],))[0]
+
+
+def _gx(x, w):
+    return (torch.einsum("...d,dgk->...gk", x, w.to(x.dtype)),)
 
 
 def _slstm_gh(r_h: torch.Tensor, h_prev: torch.Tensor,
@@ -328,11 +334,21 @@ def slstm_prefill(p, x: torch.Tensor, cfg: ArchConfig
     return _slstm_out(p, hs, x.dtype), {"c": c, "n": n, "m": m, "h": h}
 
 
+def _slstm_step(gx, r_h, bias, c, n, m, h) -> SLSTMState:
+    return _slstm_cell(gx + _slstm_gh(r_h, h, gx.dtype) + bias, (c, n, m, h))
+
+
 def apply_slstm_decode(p, x: torch.Tensor, cfg: ArchConfig, state: Dict
                        ) -> Tuple[torch.Tensor, Dict]:
-    xt = x[:, 0]
-    gates = _slstm_gates(p, xt, state["h"], cfg)
-    c, n, m, h = _slstm_cell(gates, (state["c"], state["n"], state["m"],
-                                     state["h"]))
+    """One step.  Under a sharding context the cell runs on each rank's
+    batch rows (``local_call``), as the prefill's walk does."""
+    B, _, D = x.shape
+    rows = ("act_batch", None)
+    keys = ("c", "n", "m", "h")
+    c, n, m, h = local_call(
+        _slstm_step, (_slstm_gx(p, x[:, 0]), p["r_h"],
+                      p["bias"].to(x.dtype), *(state[k] for k in keys)),
+        (rows + (None,), (None,) * 4, (None, None)) + (rows,) * 4,
+        (rows,) * 4, out_shapes=((B, D),) * 4)
     return _slstm_out(p, h[:, None, :], x.dtype), {"c": c, "n": n, "m": m,
                                                    "h": h}

@@ -23,7 +23,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.sharding import is_dtensor
+from repro_torch.distributed.sharding import argmax_last, is_dtensor
 
 MASKED_LOGIT = -1e30
 
@@ -71,7 +71,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     loss_mask = loss_mask.float()
     denom = torch.clamp_min(torch.sum(loss_mask), 1.0)
     loss = torch.sum(nll * loss_mask) / denom
-    hits = (torch.argmax(lf, -1) == labels).float() * loss_mask
+    hits = (argmax_last(lf) == labels).float() * loss_mask
     acc = torch.sum(hits) / denom
     return loss, {"loss": loss, "accuracy": acc,
                   "tokens": torch.sum(loss_mask)}
@@ -84,7 +84,7 @@ def _chunk_sums(x_c: torch.Tensor, head_w: torch.Tensor, y_c: torch.Tensor,
     lf = _mask_vocab(logits.float(), vocab_size)
     lse, label_logit = _nll_terms(lf, y_c)
     nll = (lse - label_logit) * m_c
-    hit = (torch.argmax(lf, -1) == y_c).float() * m_c
+    hit = (argmax_last(lf) == y_c).float() * m_c
     return torch.sum(nll), torch.sum(hit), torch.sum(m_c)
 
 

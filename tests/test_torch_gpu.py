@@ -1228,3 +1228,142 @@ def test_restore_elastic_onto_cuda_mesh(nccl, tmp_path):
                               flatten_with_keys(state)):
         assert a.device.type == "cuda"
         assert torch.equal(a.full_tensor().cpu(), b), k
+
+
+# --------------------------------------------------------------------------- #
+# the kernels as registered ops; sharded decode on the card
+# --------------------------------------------------------------------------- #
+
+def _op_cases(dev):
+    """(name, registered call, the direct CUDA call it replaced, inputs)
+    per kernel op at a model path's shape."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+    qkv = [rnd(1, 16, 512, 128) for _ in range(3)]
+    ab = [torch.rand((1, 512, 4096), generator=g, device=dev),
+          torch.randn((1, 512, 4096), generator=g, device=dev)]
+    x = [rnd(1, 4, 256, 384) for _ in range(3)] + [rnd(1, 4, 256)
+                                                   for _ in range(2)]
+    return [
+        ("flash", lambda q, k, v: flash.flash_attention(q, k, v),
+         lambda q, k, v: flash._flash_attention_cuda(q, k, v, True, 0, None),
+         qkv),
+        ("rglru", lambda a, b: rglru.rglru_scan(a, b, bf),
+         lambda a, b: rglru._rglru_scan_cuda(a, b, bf), ab),
+        ("mlstm", lambda *x: mlstm.mlstm_chunkwise(*x),
+         lambda *x: mlstm._mlstm_chunkwise_cuda(*x, None, 64, True), x),
+    ]
+
+
+def _flat_out(out):
+    if isinstance(out, torch.Tensor):
+        return [out]
+    h, s = out
+    return [h, *(s or ())]
+
+
+@pytest.mark.gpu
+def test_registered_ops_launch_their_kernels_as_before(cuda):
+    """Each kernel op on CUDA tensors launches its kernel once (the
+    counters move) and gives what the direct CUDA call gave before the
+    ops were registered, bit for bit."""
+    counters = {"flash": lambda: flash.launches,
+                "rglru": lambda: rglru.launches,
+                "mlstm": lambda: mlstm.parallel_launches}
+    for name, op, direct, inputs in _op_cases(cuda):
+        before = counters[name]()
+        got = _flat_out(op(*inputs))
+        assert counters[name]() == before + 1, name
+        want = _flat_out(direct(*inputs))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), name
+
+
+KERNEL_OPS = {"flash": "flash_attention", "rglru": "rglru_scan",
+              "mlstm": "mlstm_chunkwise"}
+
+
+@pytest.mark.gpu
+def test_fake_implementations_match_the_real_calls(cuda):
+    """Each op's fake implementation gives the real call's output shapes
+    and dtypes, and the scratch it allocates (counted by ``OpCounter``)
+    is what the real call holds beside its outputs: the parallel mLSTM
+    kernel's four buffers, nothing for flash and the RG-LRU scan.  The
+    card's side is read from the allocator's requested bytes, which its
+    block rounding and cached blocks do not change."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.launch.op_analysis import OpCounter
+
+    def requested(key):
+        return torch.cuda.memory_stats()[f"requested_bytes.all.{key}"]
+
+    for name, op, _, inputs in _op_cases(cuda):
+        torch.cuda.synchronize()
+        base = requested("current")
+        torch.cuda.reset_peak_memory_stats()
+        real = _flat_out(op(*inputs))
+        torch.cuda.synchronize()
+        held = requested("peak") - requested("current")
+        outs = requested("current") - base
+        with FakeTensorMode() as fm:
+            fake_in = [fm.from_tensor(t) for t in inputs]
+            counter = OpCounter()
+            with counter:
+                fake = _flat_out(op(*fake_in))
+            scratch = []
+            if name == "mlstm":
+                scratch = [t.numel() * t.element_size() for t in
+                           mlstm._parallel_scratch(1, 4, 256, 64, 384, 384,
+                                                   cuda)]
+        assert [(t.shape, t.dtype) for t in fake] == \
+            [(t.shape, t.dtype) for t in real], name
+        out_bytes = sum(t.numel() * t.element_size() for t in real)
+        assert counter.peak - out_bytes == sum(scratch), name
+        assert counter.kernel_calls == {KERNEL_OPS[name]: 1}, name
+        assert held == sum(scratch), name
+        assert outs == out_bytes, name
+        del real, fake                  # before the next case's baseline
+
+
+@pytest.mark.gpu
+def test_sharded_decode_on_cuda_mesh_equals_plain(nccl):
+    """A float32 TINY DeepSeek-7B's prefill and 4 greedy decode steps on
+    a (1, 1) CUDA mesh under ``sharding_ctx`` (the cache written on each
+    rank's shard) `==` the plain ones on the card."""
+    from repro_torch.distributed.sharding import (ShardingCtx,
+                                                  distribute_tree, rules_for,
+                                                  sharding_ctx)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import init_params, param_axes
+    cfg = _tiny_f32()
+    params = init_params(tf.model_specs(cfg), torch.Generator(
+        device=nccl).manual_seed(0), nccl)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 16), device=nccl,
+                           generator=torch.Generator(
+                               device=nccl).manual_seed(1),
+                           dtype=torch.int32)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    ctx = ShardingCtx(mesh, rules_for(cfg))
+
+    def run(p, toks, wrap=lambda t: t, full=lambda t: t):
+        logits, states = tf.prefill(p, {"tokens": wrap(toks)}, cfg, 32)
+        out = []
+        for _ in range(4):
+            out.append(full(logits))
+            nxt = torch.argmax(out[-1][:, :cfg.vocab_size], -1)
+            logits, states = tf.decode_step(
+                p, wrap(nxt[:, None].to(torch.int32)), states, cfg)
+        return torch.stack(out + [full(logits)])
+
+    with torch.no_grad():
+        want = run(params, tokens)
+        sh = distribute_tree(ctx, params, param_axes(tf.model_specs(cfg)))
+        with sharding_ctx(mesh, ctx.rules):
+            got = run(sh, tokens,
+                      wrap=lambda t: distribute_tree(ctx, t,
+                                                     ("act_batch", None)),
+                      full=lambda t: t.full_tensor())
+    assert torch.equal(got, want)

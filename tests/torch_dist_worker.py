@@ -180,6 +180,103 @@ def _mlstm_local(mesh) -> float:
                for x, y in ((h, plain), (C2, C), (n2, n), (m2, m)))
 
 
+DRYRUN_ARCHS = ("deepseek-7b", "deepseek-moe-16b")
+SERVE_PROMPT, SERVE_CACHE, SERVE_STEPS = 16, 32, 2
+
+
+def dryrun_shapes():
+    """The train step, prefill and decode step at STEP_BATCH x
+    STEP_SEQ."""
+    from repro_torch.launch.shapes import ShapeSpec
+    return {kind: ShapeSpec(kind, STEP_SEQ, STEP_BATCH, kind)
+            for kind in ("train", "prefill", "decode")}
+
+
+def dryrun_counts(result) -> dict:
+    """What the fake world's accounting must share with a real world's:
+    collectives by kind, argument bytes, FLOPs of the aten products."""
+    return {"collectives": result["collectives_per_device"],
+            "argument_bytes": result["memory"]["argument_bytes"],
+            "aten_flops": {k: v for k, v in result["flops_by_op"].items()
+                           if k.startswith("aten.")}}
+
+
+def case_dryrun(out, arg):
+    """The dry run's accounting of TINY deepseek-7b's and
+    deepseek-moe-16b's train step, prefill and decode step on (2, 4),
+    run on real DTensors; then :func:`case_serve`."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(*STEP_MESH, "cpu")
+    for arch in DRYRUN_ARCHS:
+        cfg = get_config(arch, tiny=True)
+        for kind, shape in dryrun_shapes().items():
+            step, args = dryrun.build_step(cfg, shape, mesh)
+            out[f"{arch}|{kind}"] = dryrun_counts(
+                dryrun.analyze(step, args, fake=False))
+    case_serve(out, arg)
+
+
+def serve_batch(cfg):
+    """A prompt batch of SERVE_PROMPT tokens (and the family's frames or
+    patches) from ``step_batch``, and its cache length."""
+    batch = {k: v for k, v in step_batch(cfg).items()
+             if k not in ("labels", "loss_mask")}
+    batch["tokens"] = batch["tokens"][:, :SERVE_PROMPT]
+    extra = cfg.vision_prefix_len if cfg.family == "vlm" else 0
+    return batch, SERVE_CACHE + extra
+
+
+def greedy(params, batch, cfg, cache_len, full=lambda t: t, put=None):
+    """Prefill and SERVE_STEPS greedy decode steps: every step's logits
+    (B, Vp) as numpy float32; ``full`` gathers a sharded tensor, ``put``
+    distributes the next tokens."""
+    from repro_torch.models import transformer as tf
+    with torch.no_grad():
+        logits, states = tf.prefill(params, batch, cfg, cache_len)
+        out = []
+        for _ in range(SERVE_STEPS):
+            full_logits = full(logits)
+            out.append(full_logits.float().numpy())
+            tok = torch.argmax(full_logits[:, :cfg.vocab_size], -1)
+            tok = tok[:, None].to(torch.int32)
+            logits, states = tf.decode_step(
+                params, put(tok) if put else tok, states, cfg)
+        out.append(full(logits).float().numpy())
+    return np.stack(out)
+
+
+def case_serve(out, arg):
+    """Sharded prefill and greedy decode of every registered family's
+    float32 TINY twin on (data 2, model 4)."""
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.distributed.sharding import (ShardingCtx,
+                                                  distribute_tree, rules_for,
+                                                  sharding_ctx)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.params import param_axes, params_from_numpy
+    mesh = make_mesh(*STEP_MESH, "cpu")
+    archs = arg.split(",") if arg else list_archs()
+    for arch in archs:
+        cfg = dataclasses.replace(get_config(arch, tiny=True),
+                                  dtype="float32")
+        ctx = ShardingCtx(mesh, rules_for(cfg))
+        params = distribute_tree(ctx, params_from_numpy(tiny_tree(cfg),
+                                                        "cpu"),
+                                 param_axes(tf.model_specs(cfg)))
+        batch, cache_len = serve_batch(cfg)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        batch = distribute_tree(ctx, batch, dryrun._batch_axes_tree(batch))
+        with sharding_ctx(mesh, ctx.rules):
+            out[f"serve|{arch}"] = greedy(
+                params, batch, cfg, cache_len,
+                full=lambda t: t.full_tensor(),
+                put=lambda t: distribute_tree(ctx, t, ("act_batch", None)))
+
+
 def case_compress(out, arg):
     """psum_int8 over the pod axis of every rank's row, and the
     compressed DDP step with compression on and off, on (2, 2, 2)."""
