@@ -250,7 +250,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    gate); DeepSeek-7B x train_4k and x decode_32k on a fake world of 256
    and x train_4k on one of 512, each in a process of its own (the
    512-rank one started before phase 29), must return ``ok`` with every
-   key, each per-card peak printed beside the card's memory.
+   key, each per-card peak printed beside the card's memory;
+31. orchestrate — the paper's orchestrator (``repro_torch.core``, the
+   serial simulator on the card's host): the two golden event logs
+   (``tests/data/golden_trace*.json``) replayed on both engines, ``==``;
+   the Fig. 3 combos at seed 0 and the three Fig. 4 baselines ``==`` the
+   JAX fixture ``tests/data/torch_orchestrate_golden.json``; then the
+   learned cell at full size: ``run_experiment`` of flash-crowd (2000
+   jobs, seed 0) under ``PredictiveAutoscaler`` with the forecaster of
+   ``tests/data/torch_forecaster_golden`` loaded on the card
+   (``device=None``), every ``predict`` call's ``(rate, conf)`` within
+   ``FORECAST_TOL`` of the fixture's, the row ``==`` the fixture's, and
+   the row kernel launched once a call that reached the model (counted
+   from 0 just before the run); the run's wall split into the simulator
+   and ``predict``, ``predict``'s median and p99, the row kernel's ms at
+   a ``predict``'s shape (B 1, CUDA events behind a device sleep) beside
+   its bound and the plain version, and the cost against the non-binding
+   row (``==`` the fixture's); last, 8 of phase 5's heavy-tail cells
+   through ``run_cells(workers="lanes")`` and ``workers=1``, rows ``==``.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -3662,6 +3679,151 @@ def phase_dryrun(torch, np, dev, smi: str, started=None) -> dict:
     return line
 
 
+# One predict call's mLSTM cell: B 1, H 2, T = L = 16, dk = dv = 32.
+PREDICT_CASE = (1, 2, 16, 32, 32, 64, "float32", False)
+ORCH_LANE_CELLS = 8
+
+
+def _strip_wall(rows):
+    return [{k: v for k, v in r.items() if k != "wall_s"} for r in rows]
+
+
+def phase_orchestrate(torch, np, dev) -> dict:
+    from repro_torch.core import (ExperimentSpec, golden, reset_id_counters,
+                                  run_all_combos, run_experiment,
+                                  run_k8s_baseline)
+    from repro_torch.core.experiment import build_simulation
+    from repro_torch.forecast import model
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    from repro_torch.manyworld import lane_kernel
+    from repro_torch.search.runner import CellSpec, run_cells
+    t_phase = time.perf_counter()
+    checks = {}
+    for case, (spec, _) in sorted(golden.GOLDEN_TRACE_CASES.items()):
+        want = golden.load_trace_fixture(case)
+        for engine in ("array", "object"):
+            checks[f"golden_trace/{case}/{engine}"] = (
+                golden.capture_trace(engine, spec) == want)
+    with open(golden.ORCHESTRATE_FIXTURE) as f:
+        fx = json.load(f)
+    t0 = time.perf_counter()
+    for w in golden.FIG3_WORKLOADS:
+        reset_id_counters()
+        checks[f"fig3/{w}"] = [golden.result_row(r) for r in
+                               run_all_combos(w, 0)] == fx["fig3"][w]
+        checks[f"fig4/{w}"] = (golden.result_row(run_k8s_baseline(w, 0))
+                               == fx["fig4"][w])
+    figs_s = time.perf_counter() - t0
+
+    # The learned cell: the forecaster on the card, the simulator on the
+    # host; the row kernel's count from 0 just before the run.
+    fc = model.load_forecaster(str(FORECASTER / "checkpoint"))
+    if fc.device.type != "cuda":
+        raise SystemExit(f"orchestrate: load_forecaster put the model on "
+                         f"{fc.device}")
+    rec = golden.RecordingForecaster(fc)
+    spec = ExperimentSpec(**golden.LEARNED_SPEC, forecaster_obj=rec)
+    reset_id_counters()
+    torch.cuda.synchronize()
+    mlstm.launches = mlstm.row_launches = mlstm.parallel_launches = 0
+    row, wall = golden.run_recorded(build_simulation, spec, rec)
+    torch.cuda.synchronize()
+    row_launches, all_launches = mlstm.row_launches, mlstm.launches
+    want = fx["learned"]
+    got_calls, want_calls = np.asarray(rec.calls), np.asarray(want["calls"])
+    same = got_calls.shape == want_calls.shape
+    checks["learned/calls"] = same
+    checks["learned/now_equal"] = same and bool(
+        np.array_equal(got_calls[:, 0], want_calls[:, 0]))
+    checks["learned/forecasts_within_tol"] = same and bool(
+        np.allclose(got_calls[:, 1:], want_calls[:, 1:], **FORECAST_TOL))
+    checks["learned/row_equal"] = row == want["row"]
+    checks["learned/row_launch_per_model_call"] = (
+        row_launches == rec.model_calls == want["model_calls"]
+        and all_launches == row_launches)
+    reset_id_counters()
+    nb = golden.result_row(run_experiment(ExperimentSpec(
+        **dict(golden.LEARNED_SPEC, autoscaler="non-binding"))))
+    checks["non_binding/row_equal"] = nb == fx["non_binding"]
+    predict_s = float(np.sum(rec.latency_s))
+    lat = np.asarray(rec.model_latency_s) * 1e3
+
+    # The row kernel at one predict call's shape against its plain
+    # version, timed behind a device sleep.
+    B, H, T, dk, dv, chunk = PREDICT_CASE[:6]
+    L = min(chunk, T)
+    inputs, _ = _mlstm_inputs(torch, np, PREDICT_CASE, dev)
+    checks["predict_shape/row_kernel"] = (
+        mlstm.pick_kernel(L, dk, dv, torch.float32, inputs) == "rows")
+    h, _ = mlstm.mlstm_chunkwise(*inputs, chunk=chunk, return_state=False)
+    want_h, _ = mlstm.mlstm_chunkwise_plain(*inputs, chunk=chunk,
+                                            return_state=False)
+    torch.cuda.synchronize()
+    checks["predict_shape/match"] = bool(
+        torch.allclose(h, want_h, **MLSTM_TOL["float32"]))
+    kernel_t = _queued_ms(torch, lambda: mlstm.mlstm_chunkwise(
+        *inputs, chunk=chunk, return_state=False), 200)
+    plain_t = _queued_ms(torch, lambda: mlstm.mlstm_chunkwise_plain(
+        *inputs, chunk=chunk, return_state=False), 50, warmup=5)
+    nbytes, ops = _mlstm_work(B, H, T, dk, dv, L, 4)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+
+    # Lanes against serial on phase 5's heavy-tail cells.
+    cells = [CellSpec(scenario="heavy-tail", scheduler="best-fit",
+                      autoscaler="void", rescheduler="void", seed=seed,
+                      engine="array", initial_workers=MAIN_NODES)
+             for seed in range(ORCH_LANE_CELLS)]
+    lane_kernel.launches = 0
+    t0 = time.perf_counter()
+    lane_rows = run_cells(cells, workers="lanes", device=dev)
+    lanes_s = time.perf_counter() - t0
+    lane_launches = lane_kernel.launches
+    t0 = time.perf_counter()
+    serial_rows = run_cells(cells, workers=1)
+    serial_s = time.perf_counter() - t0
+    checks["lanes_equal_serial"] = (
+        _strip_wall(lane_rows) == _strip_wall(serial_rows)
+        and lane_launches > 0)
+
+    line = {"phase": "orchestrate", "checks": checks,
+            "figs_s": figs_s,
+            "learned": {
+                "completed": row["completed"],
+                "predict_calls": len(rec.calls),
+                "model_calls": rec.model_calls,
+                "mlstm_row_launches": row_launches,
+                "mlstm_launches": all_launches,
+                "wall_s": wall, "predict_s": predict_s,
+                "simulator_s": wall - predict_s,
+                "predict_ms_median": float(np.median(lat)),
+                "predict_ms_p99": float(np.percentile(lat, 99)),
+                "predict_ms_max": float(lat.max()),
+                "forecast_max_abs_err": float(np.abs(
+                    got_calls[:, 1:] - want_calls[:, 1:]).max())
+                if same else None,
+                "max_nodes": row["max_nodes"], "cost": row["cost"],
+                "cost_non_binding": nb["cost"],
+                "cost_over_non_binding": row["cost"] / nb["cost"]},
+            "predict_shape": {
+                "shape": list(PREDICT_CASE[:5]), "chunk": L,
+                "kernel_ms": kernel_t["ms"], "kernel_timed": kernel_t,
+                "plain_ms": plain_t["ms"],
+                "max_abs_err": float((h - want_h).abs().max()),
+                "bytes": nbytes, "flops": ops,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"},
+            "lanes": {"cells": ORCH_LANE_CELLS,
+                      "lane_program_launches": lane_launches,
+                      "lanes_s": lanes_s, "serial_s": serial_s},
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"orchestrate: checks failed: {bad}")
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3716,12 +3878,16 @@ def main() -> int:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    orch = phase_orchestrate(torch, np, dev)
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
         "replaces": "src/repro/manyworld/lanes.py:196 + "
                     "src/repro/manyworld/select.py:65",
         "launches": main_line["lane_program_launches"],
+        "launches_by_path": {
+            "main": main_line["lane_program_launches"],
+            "orchestrate_lanes": orch["lanes"]["lane_program_launches"]},
         "max_abs_err": main_line["max_abs_err"],
         "ms": main_line["lane_program_ms_median"],
         "plain_ms": main_line["lockstep_plain_select_run_wall_s"] * 1e3,
@@ -3740,8 +3906,15 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/mlstm_chunkwise.cu",
         "replaces": "src/repro/kernels/mlstm_chunkwise.py:31",
         "launches": forecast_line["mlstm_row_launches"],
-        "launches_by_path": {"forecast": forecast_line["mlstm_row_launches"],
-                             "forecast_train": ft["mlstm_row_launches"]},
+        "launches_by_path": {
+            "forecast": forecast_line["mlstm_row_launches"],
+            "forecast_train": ft["mlstm_row_launches"],
+            "orchestrate": orch["learned"]["mlstm_row_launches"]},
+        "predict_shape": orch["predict_shape"]["shape"],
+        "predict_shape_ms": orch["predict_shape"]["kernel_ms"],
+        "predict_shape_plain_ms": orch["predict_shape"]["plain_ms"],
+        "predict_shape_bound_ms": orch["predict_shape"]["bound_ms"],
+        "predict_shape_max_abs_err": orch["predict_shape"]["max_abs_err"],
         "max_abs_err": m["max_abs_err_by_kernel"]["mlstm_rows"],
         "ms": m["kernel_ms"], "block_kernel_ms": m["block_kernel_ms"],
         "plain_ms": m["plain_ms"], "library_ms": None,

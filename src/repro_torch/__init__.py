@@ -1,17 +1,22 @@
-"""PyTorch + CUDA port of the many-world lane engine.
+"""PyTorch + CUDA port of ``repro``.
 
-``repro_torch`` is the PyTorch counterpart of the JAX package ``repro``'s
-accelerator path: ``search.runner.run_cells(cells, workers="lanes")``
-evaluates void/void static-cluster cells as lanes of one batched program
-(``manyworld.lanes``), whose per-pod placement select is a CUDA kernel
-written for Hopper (``manyworld/csrc/masked_argmin.cu``).  Rows are
-bit-identical to the serial simulator's except ``wall_s``.
+``repro_torch`` is the PyTorch counterpart of the JAX package ``repro``:
+the paper's orchestrator (``core``: the serial simulator, its schedulers,
+reschedulers and autoscalers, ``run_experiment`` and the Fig. 3 / Fig. 4
+experiments; ``search.runner.run_cells``), the many-world lane engine
+(``run_cells(cells, workers="lanes")``, one CUDA kernel a batch written
+for Hopper), the learned rate forecaster that the predictive autoscaler
+takes, and the LM data plane (models, training, serving, the sharded and
+dry-run paths).  Rows are bit-identical to the reference's except
+``wall_s``.
 
-The package imports ``torch`` and ``numpy`` only.  Module names mirror
-``repro``'s so each counterpart is easy to find; the pieces of the NumPy
-simulator this path needs (job types, node templates, the columnar trace,
-four scenario families, the cell spec) are kept as local copies.
+The package imports ``torch`` and ``numpy`` only, and reads no
+environment variable.  Module names mirror ``repro``'s so each
+counterpart is easy to find; the NumPy-only modules of ``repro`` are kept
+as local copies.  The serial simulator runs on the host; the device
+enters through the forecaster and the lane engine.
 
-Every entry point takes ``device=None``, which means CUDA; the CPU runs
-only when the caller passes ``device="cpu"`` (see :mod:`repro_torch.device`).
+Every entry point that uses the device takes ``device=None``, which means
+CUDA; the CPU runs only when the caller passes ``device="cpu"`` (see
+:mod:`repro_torch.device`).
 """

@@ -1,1 +1,1 @@
-"""Node templates of the simulated cloud (``repro.cloud``), as data."""
+"""Node templates and the simulated cloud provider (``repro.cloud``)."""

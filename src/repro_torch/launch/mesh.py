@@ -4,11 +4,11 @@ Functions, not module constants, so importing this module starts no
 process group.  :func:`init_distributed` starts the default group: NCCL
 for the card (``device=None`` or ``"cuda"``; no card raises, as
 ``resolve_device`` does), gloo for ``device="cpu"``.  Rank and world
-come from the arguments, else from ``RANK`` / ``WORLD_SIZE``, else a
-world of 1; without an ``init_method`` a world of 1 rendezvouses on a
-file store in a fresh temporary directory, removed when the process
-exits, and a larger one reads ``MASTER_ADDR`` / ``MASTER_PORT``
-(``env://``).
+come from the arguments only (default: rank 0 of a world of 1; the
+module reads no environment variable); without an ``init_method`` a
+world of 1 rendezvouses on a file store in a fresh temporary directory,
+removed when the process exits, and a larger world must be given its
+rendezvous (``tcp://host:port`` or ``file://path``).
 
 The meshes are ``torch.distributed.device_mesh.DeviceMesh``\\ es with
 named dimensions, the torch form of ``jax.sharding.Mesh``:
@@ -33,15 +33,16 @@ from repro_torch.device import resolve_device
 
 def init_distributed(device=None, init_method: Optional[str] = None,
                      rank: Optional[int] = None,
-                     world_size: Optional[int] = None) -> torch.device:
+                     world_size: Optional[int] = None,
+                     local_rank: Optional[int] = None) -> torch.device:
     """Start the default process group (once) and return this rank's
-    device: ``cuda:<local rank>`` for NCCL, the CPU for gloo."""
+    device: ``cuda:<local rank>`` for NCCL (``local_rank`` defaults to
+    ``rank``), the CPU for gloo."""
     dev = resolve_device(device)
-    rank = int(os.environ.get("RANK", 0)) if rank is None else rank
-    world = int(os.environ.get("WORLD_SIZE", 1)) if world_size is None \
-        else world_size
+    rank = 0 if rank is None else rank
+    world = 1 if world_size is None else world_size
     if dev.type == "cuda":
-        local = int(os.environ.get("LOCAL_RANK", rank))
+        local = rank if local_rank is None else local_rank
         dev = torch.device("cuda", local % torch.cuda.device_count())
         torch.cuda.set_device(dev)
     if not dist.is_initialized():
@@ -51,7 +52,9 @@ def init_distributed(device=None, init_method: Optional[str] = None,
                 atexit.register(shutil.rmtree, root, True)
                 init_method = f"file://{os.path.join(root, 'store')}"
             else:
-                init_method = "env://"
+                raise ValueError(
+                    f"a world of {world} needs an init_method "
+                    "(tcp://host:port or file://path)")
         dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                                 init_method=init_method, rank=rank,
                                 world_size=world)

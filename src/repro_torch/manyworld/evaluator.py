@@ -6,9 +6,9 @@ one row dict per cell, in the order given, evaluating every cell inside
 batched lane programs (:mod:`repro_torch.manyworld.lanes`).
 
 **Eligibility** is the lane engine's relaxed-semantics envelope — the
-void/void static-cluster regime (:func:`lane_eligible`).  The serial
-simulator is not ported, so a cell outside it raises ``ValueError``
-naming the cell instead of running serially.
+void/void static-cluster regime (:func:`lane_eligible`).  A cell outside
+it raises ``ValueError`` naming the cell; ``run_cells(cells, workers=1)``
+runs it on the serial simulator.
 
 **Exactness.**  Rows are bit-identical to the reference's serial
 ``run_cell`` except ``wall_s``, which is the lane's share of its batch's
@@ -307,8 +307,8 @@ def run_cells_lanes(cells: Sequence, device=None) -> List[dict]:
             raise ValueError(
                 f"cell {cell.label} is outside the lane engine's envelope "
                 "(void/void static cluster, array engine, one of "
-                f"{SCHEDULERS}, valid weights); repro_torch has no serial "
-                "simulator to run it")
+                f"{SCHEDULERS}, valid weights); run it with "
+                "run_cells(..., workers=1)")
 
     rows: List[Optional[dict]] = [None] * len(cells)
     buckets = {}                  # (sched, p_pad, n_pad) -> [entries]

@@ -17,12 +17,13 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.workload import JOB_TYPES, JobType, mix_templates
+from repro_torch.core.pods import PodSpec
+from repro_torch.core.workload import JOB_TYPES, mix_templates
 from repro_torch.scenarios.trace import TraceStore
 
-BATCH_TEMPLATES: List[JobType] = [
+BATCH_TEMPLATES: List[PodSpec] = [
     JOB_TYPES["batch_small"], JOB_TYPES["batch_med"], JOB_TYPES["batch_large"]]
-SERVICE_TEMPLATES: List[JobType] = [
+SERVICE_TEMPLATES: List[PodSpec] = [
     JOB_TYPES["service_small"], JOB_TYPES["service_med"],
     JOB_TYPES["service_large"]]
 
@@ -216,7 +217,7 @@ class AutoscalerStress:
         lam_cum = np.cumsum(rates * dwell)
         times = _invert_piecewise(targets, np.cumsum(dwell), lam_cum)
         if self.batch_only:
-            templates: List[JobType] = list(BATCH_TEMPLATES)
+            templates: List[PodSpec] = list(BATCH_TEMPLATES)
             weights = None
         else:
             templates, weights = mix_templates("mixed")

@@ -64,12 +64,14 @@ def test_rows_equal_serial_reference_rows():
 
 
 def test_ineligible_cell_raises_naming_it():
+    """The lane engine refuses a cell outside its envelope, naming it;
+    the serial simulator (``workers=1``) runs it."""
     ok = port_runner.CellSpec(**CELL_KWARGS[0])
     bad = dataclasses.replace(ok, autoscaler="binding")
     with pytest.raises(ValueError, match=re.escape(bad.label)):
         port_runner.run_cells([ok, bad], device="cpu")
-    with pytest.raises(NotImplementedError):
-        port_runner.run_cells([ok], workers=1, device="cpu")
+    rows = port_runner.run_cells([bad], workers=1)
+    assert rows[0]["label"] == bad.label and rows[0]["completed"]
 
 
 def test_device_none_without_cuda_raises():

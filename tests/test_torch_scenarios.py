@@ -24,6 +24,8 @@ from repro_torch.search import runner as port_runner
 
 FAMILIES = ("heavy-tail", "diurnal", "flash-crowd", "mix-ramp",
             "scale-stress", "multi-tenant")
+COLUMNS = ("arrival_time", "template_id", "cpu_m", "mem_mb", "duration_s",
+           "kind", "moveable", "checkpointable")
 
 
 @pytest.mark.parametrize("n_jobs", (0, 24, 40, 2000))
@@ -46,9 +48,32 @@ def test_lane_arrays_bit_identical(scenario, n_jobs):
         for key in a:
             assert a[key].dtype == b[key].dtype, key
             assert np.array_equal(a[key], b[key]), (scenario, seed, key)
-        for col in ("arrival_time", "template_id", "cpu_m", "mem_mb",
-                    "duration_s", "kind"):
+        for col in COLUMNS:
             assert np.array_equal(getattr(got, col), getattr(want, col)), col
+
+
+@pytest.mark.parametrize("workload", ("bursty", "slow", "mixed"))
+def test_paper_workloads_bit_identical(workload):
+    """``paper-*``: ``generate_workload`` columnarized by
+    ``TraceStore.from_arrivals``; ``n_jobs`` is ignored (Table 2 fixes 50
+    jobs), and the arrivals round-trip."""
+    for seed in range(3):
+        want = ref_build(f"paper-{workload}", seed=seed, n_jobs=7)
+        got = port_build(f"paper-{workload}", seed=seed, n_jobs=7)
+        assert got.n == want.n == 50 and got.name == want.name
+        a, b = got.to_lane_arrays(), want.to_lane_arrays()
+        assert a.keys() == b.keys()
+        for key in a:
+            assert a[key].dtype == b[key].dtype, key
+            assert np.array_equal(a[key], b[key]), (workload, seed, key)
+        for col in COLUMNS:
+            assert np.array_equal(getattr(got, col), getattr(want, col)), col
+        assert got.count_kinds() == want.count_kinds()
+        arrivals = port_workload.generate_workload(workload, seed=seed)
+        assert [(a.time, a.spec) for a in got.to_arrivals()] == \
+            [(a.time, a.spec) for a in arrivals]
+        assert [a.time for a in arrivals] == [
+            a.time for a in ref_workload.generate_workload(workload, seed)]
 
 
 def test_default_sizes_and_slice():
@@ -61,8 +86,7 @@ def test_default_sizes_and_slice():
 
 
 def test_unported_scenarios_raise_keyerror():
-    for name in ("paper-bursty", "paper-mixed", "spot-spike",
-                 "capacity-crunch"):
+    for name in ("spot-spike", "zone-outage", "capacity-crunch"):
         with pytest.raises(KeyError, match="ROADMAP"):
             port_build(name)
     with pytest.raises(KeyError, match="unknown scenario"):
@@ -75,7 +99,9 @@ def test_job_types_and_mixes_equal():
     for name, ref in ref_workload.JOB_TYPES.items():
         got = port_workload.JOB_TYPES[name]
         assert got.type_name == ref.type_name
-        assert got.kind == ref.kind.value
+        assert got.kind.value == ref.kind.value
+        assert got.moveable == ref.moveable
+        assert got.checkpointable == ref.checkpointable
         assert got.requests.cpu_m == ref.requests.cpu_m
         assert got.requests.mem_mb == ref.requests.mem_mb
         assert got.duration_s == ref.duration_s
@@ -122,6 +148,6 @@ def test_merge_interleaves_and_dedups_templates():
     got, want = TraceStore.merge(parts, "m"), RefTraceStore.merge(ref_parts)
     assert got.n == want.n == 90
     assert len(got.templates) == len(want.templates)
-    for col in ("arrival_time", "template_id", "duration_s", "kind"):
+    for col in COLUMNS:
         assert np.array_equal(getattr(got, col), getattr(want, col)), col
     assert TraceStore.merge([]).n == 0
