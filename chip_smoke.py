@@ -268,6 +268,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    its bound and the plain version, and the cost against the non-binding
    row (``==`` the fixture's); last, 8 of phase 5's heavy-tail cells
    through ``run_cells(workers="lanes")`` and ``workers=1``, rows ``==``.
+32. chaos_search_obs — F3's mixed batch on the card: 64 of phase 5's
+   heavy-tail cells with four cells outside the lane envelope (the
+   binding autoscaler, one a chaos spot-spike cell), an infeasible and a
+   zero-pod cell, through ``run_cells(workers="lanes")`` (one lane-program
+   launch; the rest serially in place) against ``workers=1``, rows ``==``
+   in submission order; ``capture_chaos_trace`` of the three chaos
+   families on both engines ``==`` ``tests/data/golden_chaos_trace.json``
+   and ``run_chaos_cell`` at 400 jobs ``==``
+   ``tests/data/torch_chaos_rows.json``; the NSGA-II micro-search on both
+   engines ``==`` ``tests/data/golden_search.json``, a pool of 2 (in a
+   child process that imports no torch, killed at a deadline) and
+   ``workers="lanes"`` ``==`` serial, ``build_report`` against
+   ``baseline_rows``; then phase 31's learned cell with the flight
+   recorder on (``obs=True``, the forecaster on the card): the row ``==``
+   the fixture's, the row kernel launched as often as in phase 31, every
+   forecast event the ring retains within ``FORECAST_TOL`` of the
+   fixture's last calls, the
+   bundle through ``save_bundle`` / ``load_bundle`` in JSON and NPZ,
+   ``render_report``; its wall beside phase 31's and its events by kind.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -3824,6 +3843,311 @@ def phase_orchestrate(torch, np, dev) -> dict:
     return line
 
 
+# Phase 32: the F3 mixed batch's lane cells (phase 5's heavy-tail cells
+# at the family's 2000 jobs on 64 m2.small nodes), the search's pinned
+# micro-search (tests/data/golden_search.json) and the pool's deadline.
+F3_LANE_CELLS = 64
+SEARCH_SCENARIOS = ("diurnal", "heavy-tail")
+SEARCH_SETTINGS = dict(generations=2, pop_size=6, seed=7, n_jobs=40)
+SEARCH_ROW_KEYS = ("completed", "infeasible", "cost", "mean_pending_s",
+                   "avg_ram_ratio", "evictions", "scale_outs", "scale_ins",
+                   "max_nodes")
+SEARCH_POOL_TIMEOUT_S = 300
+CHAOS_TRACE = ROOT / "tests" / "data" / "golden_chaos_trace.json"
+CHAOS_ROWS = ROOT / "tests" / "data" / "torch_chaos_rows.json"
+SEARCH_GOLDEN = ROOT / "tests" / "data" / "golden_search.json"
+
+
+def _f3_cells(CellSpec):
+    """The mixed batch: F3_LANE_CELLS lane-eligible heavy-tail cells with,
+    spread between them, four cells outside the lane envelope (the
+    binding autoscaler, one a chaos spot-spike cell), one infeasible cell
+    (diurnal's pods on m2.tiny) and one zero-pod cell."""
+    lanes = [CellSpec(scenario="heavy-tail", scheduler="best-fit",
+                      autoscaler="void", rescheduler="void", seed=seed,
+                      engine="array", initial_workers=MAIN_NODES)
+             for seed in range(F3_LANE_CELLS)]
+    others = [
+        CellSpec(scenario="heavy-tail", autoscaler="binding",
+                 rescheduler="non-binding", seed=0, n_jobs=400),
+        CellSpec(scenario="diurnal", autoscaler="binding", seed=1,
+                 n_jobs=400),
+        CellSpec(scenario="flash-crowd", scheduler="k8s-default",
+                 autoscaler="binding", rescheduler="binding", seed=2,
+                 n_jobs=400),
+        CellSpec(scenario="spot-spike", autoscaler="binding",
+                 rescheduler="non-binding", seed=0, chaos=True),
+        CellSpec(scenario="diurnal", autoscaler="void", rescheduler="void",
+                 seed=0, initial_workers=2, template_name="m2.tiny"),
+        CellSpec(scenario="heavy-tail", autoscaler="void",
+                 rescheduler="void", seed=0, n_jobs=0,
+                 initial_workers=MAIN_NODES)]
+    cells, step = [], len(lanes) // len(others)
+    for i, other in enumerate(others):
+        cells.extend(lanes[i * step:(i + 1) * step])
+        cells.append(other)
+    cells.extend(lanes[len(others) * step:])
+    return cells
+
+
+def _rows_equal(got, want, fields) -> bool:
+    keys = tuple(fields) + ("label", "infeasible", "n_jobs", "cell")
+    return len(got) == len(want) and all(
+        type(g[k]) is type(w[k]) and g[k] == w[k]
+        for g, w in zip(got, want) for k in keys)
+
+
+def _search_doc(res) -> dict:
+    """A ``SearchResult`` in ``tests/data/golden_search.json``'s layout
+    (JSON round-tripped), plus the final population."""
+    doc = {
+        "scenarios": list(res.scenarios),
+        "settings": dict(SEARCH_SETTINGS),
+        "evaluations": res.evaluations,
+        "history": res.history,
+        "front": [{
+            "vector": list(ind.vector), "config": ind.config,
+            "objectives": list(ind.objectives),
+            "per_scenario": {sc: {k: row[k] for k in SEARCH_ROW_KEYS}
+                             for sc, row in ind.per_scenario.items()},
+        } for ind in res.front],
+        "population": [[list(ind.vector), list(ind.objectives)]
+                       for ind in res.population]}
+    return json.loads(json.dumps(doc))
+
+
+def _pool_child() -> None:
+    """Body of the pool's process (``python3 -c``): the micro-search on a
+    pool of 2, printed as one JSON line with the modules it imported."""
+    from repro_torch.search import default_space, run_search
+    res = run_search(default_space(), SEARCH_SCENARIOS, workers=2,
+                     **SEARCH_SETTINGS)
+    print(json.dumps({"doc": _search_doc(res),
+                      "torch_imported": "torch" in sys.modules}))
+
+
+def _run_pool_child() -> dict:
+    """The 2-worker search in a process of its own, in its own session:
+    it imports no torch, so the pool's workers (started by fork, the
+    platform's default) inherit no CUDA context from this process.  Past
+    SEARCH_POOL_TIMEOUT_S the whole session (the child and its workers)
+    is killed and the phase fails."""
+    import signal
+    code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+            "import chip_smoke; chip_smoke._pool_child()")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=SEARCH_POOL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SystemExit(f"chaos_search_obs: the 2-worker search passed "
+                         f"its {SEARCH_POOL_TIMEOUT_S} s deadline")
+    if proc.returncode != 0:
+        raise SystemExit(f"chaos_search_obs: the 2-worker search failed "
+                         f"(rc {proc.returncode}): {err[-2000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_chaos_search_obs(torch, np, dev, orch) -> dict:
+    """Phase 32: F3's mixed batch on the card, the chaos families, the
+    NSGA-II search and the flight recorder on the learned cell.
+
+    The search's pool runs in a child process started from this one
+    (see ``_run_pool_child``): that child imports no torch, and its
+    fork-started workers do no CUDA work; a child that hangs is killed
+    with its workers at a deadline and fails the phase."""
+    import tempfile
+    from repro_torch.core import ExperimentSpec, golden, reset_id_counters
+    from repro_torch.core.experiment import build_simulation
+    from repro_torch.forecast import model
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    from repro_torch.manyworld import evaluator, lane_kernel
+    from repro_torch.obs import (EventLog, load_bundle, render_report,
+                                 save_bundle)
+    from repro_torch.obs.recorder import EV_FORECAST, KIND_NAMES
+    from repro_torch.scenarios.chaos import (CHAOS_SCENARIOS, GOLDEN_JOBS,
+                                             capture_chaos_trace,
+                                             run_chaos_cell)
+    from repro_torch.search import (baseline_rows, build_report,
+                                    default_space, run_search, summarize)
+    from repro_torch.search.runner import (_RESULT_FIELDS, CellSpec,
+                                           run_cells)
+    t_phase = time.perf_counter()
+    checks, line = {}, {"phase": "chaos_search_obs"}
+
+    # F3: one mixed batch through the lane engine on the card, against
+    # the serial simulator, in submission order.
+    cells = _f3_cells(CellSpec)
+    lane_kernel.launches = 0
+    t0 = time.perf_counter()
+    lane_rows = run_cells(cells, workers="lanes", device=dev)
+    lanes_s = time.perf_counter() - t0
+    f3_launches = lane_kernel.launches
+    stages = dict(evaluator.stage_s)
+    t0 = time.perf_counter()
+    serial_rows = run_cells(cells, workers=1)
+    serial_s = time.perf_counter() - t0
+    n_eligible = sum(evaluator.lane_eligible(c) for c in cells)
+    checks["f3/rows_equal_serial"] = _rows_equal(lane_rows, serial_rows,
+                                                 _RESULT_FIELDS)
+    checks["f3/one_launch_per_bucket"] = f3_launches == 1
+    checks["f3/labels_in_order"] = ([r["label"] for r in lane_rows]
+                                    == [c.label for c in cells])
+    checks["f3/infeasible_and_zero_pod"] = (
+        sum(r["infeasible"] for r in lane_rows) == 1
+        and sum(r["n_jobs"] == 0 for r in lane_rows) == 1)
+    line["f3"] = {"cells": len(cells), "lane_eligible": n_eligible,
+                  "serial_in_batch": len(cells) - n_eligible,
+                  "lane_program_launches": f3_launches,
+                  "lanes_path_s": lanes_s, "stage_s": stages,
+                  "serial_path_s": serial_s}
+
+    # Chaos: the golden traces on both engines, the 400-job rows.
+    t0 = time.perf_counter()
+    with open(CHAOS_TRACE) as f:
+        golden_traces = json.load(f)
+    for name in CHAOS_SCENARIOS:
+        for engine in ("array", "object"):
+            checks[f"chaos_trace/{name}/{engine}"] = (
+                capture_chaos_trace(name, engine, seed=0,
+                                    n_jobs=GOLDEN_JOBS)
+                == golden_traces[name])
+    traces_s = time.perf_counter() - t0
+    with open(CHAOS_ROWS) as f:
+        want_rows = json.load(f)
+    chaos_rows = {}
+    t0 = time.perf_counter()
+    for name in CHAOS_SCENARIOS:
+        row = run_chaos_cell(name, seed=0, engine="array")
+        chaos_rows[name] = row
+        checks[f"chaos_rows/{name}"] = (
+            {k: v for k, v in row.items() if k != "wall_s"}
+            == want_rows[name])
+    rows_s = time.perf_counter() - t0
+    line["chaos"] = {"traces_s": traces_s, "rows_s": rows_s,
+                     "rows": chaos_rows}
+
+    # Search: the pinned micro-search on both engines, a pool of 2 in a
+    # child process, workers="lanes", and the report.
+    with open(SEARCH_GOLDEN) as f:
+        want_search = json.load(f)
+    t0 = time.perf_counter()
+    results = {engine: run_search(default_space(), SEARCH_SCENARIOS,
+                                  workers=1, engine=engine,
+                                  **SEARCH_SETTINGS)
+               for engine in ("array", "object")}
+    docs = {engine: _search_doc(res) for engine, res in results.items()}
+    for engine, doc in docs.items():
+        checks[f"search/golden/{engine}"] = all(
+            doc[k] == want_search[k] for k in want_search)
+    serial_res = results["array"]
+    search_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pooled = _run_pool_child()
+    pool_s = time.perf_counter() - t0
+    checks["search/pool_equal_serial"] = pooled["doc"] == docs["array"]
+    checks["search/pool_child_no_torch"] = not pooled["torch_imported"]
+    lane_kernel.launches = 0
+    t0 = time.perf_counter()
+    lanes_res = run_search(default_space(), SEARCH_SCENARIOS,
+                           workers="lanes", **SEARCH_SETTINGS)
+    search_lanes_s = time.perf_counter() - t0
+    checks["search/lanes_equal_serial"] = (_search_doc(lanes_res)
+                                           == docs["array"])
+    report = build_report(serial_res, baseline_rows(
+        SEARCH_SCENARIOS, seed=SEARCH_SETTINGS["seed"],
+        n_jobs=SEARCH_SETTINGS["n_jobs"]))
+    summary = summarize(report)
+    checks["search/report_renders"] = (
+        bool(json.dumps(report)) and summary[0].startswith("Pareto front"))
+    line["search"] = {"serial_both_engines_s": search_s,
+                      "pool_of_2_s": pool_s, "lanes_s": search_lanes_s,
+                      "lanes_launches": lane_kernel.launches,
+                      "front": len(serial_res.front),
+                      "evaluations": serial_res.evaluations,
+                      "summary": summary}
+
+    # The flight recorder on phase 31's learned cell, the forecaster on
+    # the card; the row kernel's count from 0 just before the run.
+    with open(golden.ORCHESTRATE_FIXTURE) as f:
+        want = json.load(f)["learned"]
+    fc = model.load_forecaster(str(FORECASTER / "checkpoint"))
+    spec = ExperimentSpec(**golden.LEARNED_SPEC, forecaster_obj=fc,
+                          obs=True)
+    reset_id_counters()
+    sim = build_simulation(spec)
+    torch.cuda.synchronize()
+    mlstm.launches = mlstm.row_launches = mlstm.parallel_launches = 0
+    t0 = time.perf_counter()
+    result = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    row_launches, all_launches = mlstm.row_launches, mlstm.launches
+    result.workload = spec.workload_label()
+    row = golden.result_row(result)
+    rec = sim.obs
+    checks["obs/row_equal_fixture"] = row == want["row"]
+    checks["obs/row_launches_equal_phase_31"] = (
+        row_launches == orch["learned"]["mlstm_row_launches"]
+        == want["model_calls"] and all_launches == row_launches)
+    # The ring keeps the latest ObsConfig().capacity events: its forecast
+    # events are the last predict calls of the fixture's run.
+    cols = rec.events.columns()
+    fc_ev = cols["kind"] == EV_FORECAST
+    n_fc = int(fc_ev.sum())
+    calls = np.asarray(want["calls"])[-n_fc:] if n_fc else np.zeros((0, 3))
+    checks["obs/ring_holds_latest"] = (
+        len(rec.events) == min(rec.events.n_seen, rec.events.capacity))
+    checks["obs/forecast_events"] = n_fc > 0 and bool(
+        np.array_equal(cols["t"][fc_ev], calls[:, 0])
+        and np.allclose(cols["rate"][fc_ev], calls[:, 1], **FORECAST_TOL)
+        and np.allclose(cols["conf"][fc_ev], calls[:, 2], **FORECAST_TOL))
+    bundle = rec.bundle()
+    with tempfile.TemporaryDirectory(prefix="repro_torch_obs_") as root:
+        for suffix in (".json", ".npz"):
+            path = os.path.join(root, f"bundle{suffix}")
+            t0 = time.perf_counter()
+            save_bundle(bundle, path)
+            back = load_bundle(path)
+            checks[f"obs/bundle_round_trip{suffix}"] = (
+                EventLog.from_payload(back["events"]).same_as(rec.events)
+                and back["meta"] == bundle["meta"]
+                and back["profile"]["names"] == bundle["profile"]["names"]
+                and np.array_equal(back["profile"]["count"],
+                                   bundle["profile"]["count"])
+                and np.array_equal(back["node_count_n"],
+                                   bundle["node_count_n"]))
+            line.setdefault("bundle", {})[suffix] = {
+                "bytes": os.path.getsize(path),
+                "save_load_s": time.perf_counter() - t0}
+    text = render_report(bundle, limit=20)
+    checks["obs/report_renders"] = ("cycle-phase profile" in text
+                                    and "forecast" in text)
+    counts = np.bincount(cols["kind"].astype(np.int64),
+                         minlength=len(KIND_NAMES))
+    line["obs"] = {
+        "completed": row["completed"], "wall_s": wall,
+        "phase_31_wall_s": orch["learned"]["wall_s"],
+        "wall_over_phase_31": wall / orch["learned"]["wall_s"],
+        "mlstm_row_launches": row_launches, "mlstm_launches": all_launches,
+        "events_seen": rec.events.n_seen,
+        "events_retained": len(rec.events),
+        "retained_by_kind": {n: int(c) for n, c in zip(KIND_NAMES, counts)},
+        "forecast_events_checked": n_fc,
+        "profiled_spans": rec.prof.n_spans_seen,
+        "report_lines": len(text.splitlines())}
+    line["checks"] = checks
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"chaos_search_obs: checks failed: {bad}")
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3879,6 +4203,7 @@ def main() -> int:
                 p.kill()
                 p.wait()
     orch = phase_orchestrate(torch, np, dev)
+    cso = phase_chaos_search_obs(torch, np, dev, orch)
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -3887,7 +4212,8 @@ def main() -> int:
         "launches": main_line["lane_program_launches"],
         "launches_by_path": {
             "main": main_line["lane_program_launches"],
-            "orchestrate_lanes": orch["lanes"]["lane_program_launches"]},
+            "orchestrate_lanes": orch["lanes"]["lane_program_launches"],
+            "f3_mixed_batch": cso["f3"]["lane_program_launches"]},
         "max_abs_err": main_line["max_abs_err"],
         "ms": main_line["lane_program_ms_median"],
         "plain_ms": main_line["lockstep_plain_select_run_wall_s"] * 1e3,
@@ -3909,7 +4235,8 @@ def main() -> int:
         "launches_by_path": {
             "forecast": forecast_line["mlstm_row_launches"],
             "forecast_train": ft["mlstm_row_launches"],
-            "orchestrate": orch["learned"]["mlstm_row_launches"]},
+            "orchestrate": orch["learned"]["mlstm_row_launches"],
+            "orchestrate_obs": cso["obs"]["mlstm_row_launches"]},
         "predict_shape": orch["predict_shape"]["shape"],
         "predict_shape_ms": orch["predict_shape"]["kernel_ms"],
         "predict_shape_plain_ms": orch["predict_shape"]["plain_ms"],

@@ -2,13 +2,12 @@
 autoscaling for container/job orchestration (Rodriguez & Buyya, 2018).
 
 The serial simulator of ``repro/core``, copied module for module: NumPy
-and Python on the host, its rows bit-identical to the reference's.  Two
-departures: engine, wave kernel and run-length fast path are explicit
+and Python on the host, its rows bit-identical to the reference's.  One
+departure: engine, wave kernel and run-length fast path are explicit
 ``ExperimentSpec`` / ``Cluster`` arguments (the reference also reads
-them from environment variables), and the disruption injectors
-(``core/disruption.py``), ``heterogeneous`` and ``estimator`` are not
-ported yet.  The device enters through the forecaster that
-``ExperimentSpec(forecaster_obj=...)`` hands the predictive autoscaler.
+them from environment variables).  The device enters through the
+forecaster that ``ExperimentSpec(forecaster_obj=...)`` hands the
+predictive autoscaler.
 """
 
 from repro_torch.core.autoscaler import (AUTOSCALERS, Autoscaler,
@@ -17,6 +16,10 @@ from repro_torch.core.autoscaler import (AUTOSCALERS, Autoscaler,
                                          SimpleAutoscaler, VoidAutoscaler)
 from repro_torch.core.cluster import Cluster, Node, NodeState
 from repro_torch.core.cost import CostModel
+from repro_torch.core.disruption import (CrashLoopInjector,
+                                         DisruptionInjector,
+                                         SpotReclaimInjector,
+                                         ZoneOutageInjector)
 from repro_torch.core.experiment import (ExperimentSpec, build_simulation,
                                          run_all_combos, run_experiment,
                                          run_k8s_baseline)
@@ -56,7 +59,8 @@ __all__ = [
     "AUTOSCALERS", "Autoscaler", "BindingAutoscaler", "NodeProvider",
     "PredictiveAutoscaler", "SimpleAutoscaler", "VoidAutoscaler",
     "Cluster", "Node", "NodeState",
-    "CostModel", "FailureInjector",
+    "CostModel", "CrashLoopInjector", "DisruptionInjector",
+    "SpotReclaimInjector", "ZoneOutageInjector", "FailureInjector",
     "StragglerInjector", "ExperimentSpec", "build_simulation", "run_all_combos",
     "run_experiment", "run_k8s_baseline", "ExperimentResult",
     "MetricsCollector", "Orchestrator", "Pod", "PodKind", "PodPhase",

@@ -94,10 +94,11 @@ class ExperimentSpec:
     # Best-fit run-length fast path of the array engine's wave loop
     # (decision-identical; False forces per-pod extremum queries).
     wave_runlen: bool = True
-    # Observability: the reference's flight recorder is not ported yet
-    # (ROADMAP.md Queue 1 item 18, "obs/"); anything but None/False
-    # raises.  The hooks it would attach to stay in the core, each an
-    # is-None test.
+    # Observability (repro_torch.obs): an ObsConfig (or True for defaults)
+    # attaches a flight recorder + cycle-phase profiler to the built
+    # simulation.  None (default) compiles observability out — the hot
+    # paths pay one is-None test and results are untouched; with it set,
+    # recording is passive and ExperimentResult stays bit-identical.
     obs: object = None
 
     def workload_source(self):
@@ -165,11 +166,6 @@ def build_simulation(spec: ExperimentSpec) -> Simulation:
     cost.price_table.setdefault(template.name, template.price_per_s)
     provider = SimCloudProvider(template, cost,
                                 straggler_injector=spec.straggler_injector)
-    if spec.obs is not None and spec.obs is not False:
-        raise NotImplementedError(
-            "ExperimentSpec.obs: the flight recorder (repro/obs) is not "
-            "ported to repro_torch yet (ROADMAP.md Queue 1 item 18, "
-            "obs/)")
     cluster = Cluster(use_arrays=spec.engine != "object",
                       wave_select=spec.wave_select,
                       wave_runlen=spec.wave_runlen)
@@ -228,6 +224,15 @@ def build_simulation(spec: ExperimentSpec) -> Simulation:
                      config=SimConfig(cycle_period_s=spec.cycle_period_s),
                      failure_injector=spec.failure_injector)
     provider.attach(sim)
+    if spec.obs is not None and spec.obs is not False:
+        from repro_torch.obs import ObsConfig, ObsRecorder
+        config = spec.obs if isinstance(spec.obs, ObsConfig) else None
+        recorder = ObsRecorder(config).attach(sim)
+        recorder.meta = {
+            "workload": spec.workload_label(), "scheduler": spec.scheduler,
+            "rescheduler": spec.rescheduler, "autoscaler": spec.autoscaler,
+            "seed": spec.seed,
+            "engine": "array" if cluster.arrays is not None else "object"}
     return sim
 
 

@@ -7,8 +7,8 @@ batched lane programs (:mod:`repro_torch.manyworld.lanes`).
 
 **Eligibility** is the lane engine's relaxed-semantics envelope — the
 void/void static-cluster regime (:func:`lane_eligible`).  A cell outside
-it raises ``ValueError`` naming the cell; ``run_cells(cells, workers=1)``
-runs it on the serial simulator.
+it runs through the serial ``run_cell`` in place, so a mixed batch keeps
+its submission order.
 
 **Exactness.**  Rows are bit-identical to the reference's serial
 ``run_cell`` except ``wall_s``, which is the lane's share of its batch's
@@ -48,9 +48,11 @@ from repro_torch.manyworld.lanes import (CYCLE_PERIOD_S, HORIZON_S,
 SAMPLE_PERIOD_S = 20.0
 
 # Seconds by stage of the last run_cells_lanes call: traces and lane
-# arrays built on the host ("prepare_s"), batches stacked and uploaded,
-# the lane program (the kernel on the card, to its end), outputs copied
-# back, and the host replay of the rows (_lane_metrics).
+# arrays built on the host ("prepare_s", less the serial cells), the
+# cells outside the envelope on the serial simulator ("serial_s"),
+# batches stacked and uploaded, the lane program (the kernel on the card,
+# to its end), outputs copied back, and the host replay of the rows
+# (_lane_metrics).
 stage_s: dict = {}
 
 
@@ -292,28 +294,27 @@ class _EmptyTrace:
 
 def run_cells_lanes(cells: Sequence, device=None) -> List[dict]:
     """Evaluate ``cells`` with the lane engine on ``device`` (``None``
-    means CUDA); serial-identical rows in submission order.  A cell
-    outside :func:`lane_eligible` raises ``ValueError``."""
+    means CUDA); serial-identical rows in submission order.  Cells
+    outside :func:`lane_eligible` run through the serial ``run_cell``
+    unchanged; the device is resolved only when a lane batch launches."""
     from repro_torch.search.runner import (CellError, _get_trace,
-                                           _infeasible, _template_of)
-    dev = resolve_device(device)
+                                           _infeasible, _template_of,
+                                           run_cell)
     stage_s.clear()
-    stage_s.update(prepare_s=0.0, stack_upload_s=0.0, lane_program_s=0.0,
-                   download_s=0.0, host_replay_s=0.0)
+    stage_s.update(prepare_s=0.0, serial_s=0.0, stack_upload_s=0.0,
+                   lane_program_s=0.0, download_s=0.0, host_replay_s=0.0)
     t_prep = time.perf_counter()
     cells = list(cells)
-    for cell in cells:
-        if not lane_eligible(cell):
-            raise ValueError(
-                f"cell {cell.label} is outside the lane engine's envelope "
-                "(void/void static cluster, array engine, one of "
-                f"{SCHEDULERS}, valid weights); run it with "
-                "run_cells(..., workers=1)")
 
     rows: List[Optional[dict]] = [None] * len(cells)
     buckets = {}                  # (sched, p_pad, n_pad) -> [entries]
     for idx, cell in enumerate(cells):
         try:
+            if not lane_eligible(cell):
+                t0 = time.perf_counter()
+                rows[idx] = run_cell(cell)
+                stage_s["serial_s"] += time.perf_counter() - t0
+                continue
             trace = _get_trace(cell.scenario, cell.seed, cell.n_jobs)
             template = _template_of(cell)
             if _infeasible(cell, trace):
@@ -335,10 +336,14 @@ def run_cells_lanes(cells: Sequence, device=None) -> List[dict]:
                    next_pow2(cell.initial_workers))
             buckets.setdefault(key, []).append((idx, cell, trace, template,
                                                 lane))
+        except CellError:
+            raise
         except Exception as exc:
             raise CellError(f"cell {cell.label} failed: {exc!r}") from exc
 
-    stage_s["prepare_s"] = time.perf_counter() - t_prep
+    stage_s["prepare_s"] = (time.perf_counter() - t_prep
+                            - stage_s["serial_s"])
+    dev = resolve_device(device) if buckets else None
 
     for (sched, p_pad, _n_pad), entries in buckets.items():
         t0 = time.perf_counter()

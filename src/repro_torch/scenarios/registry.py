@@ -14,8 +14,8 @@ Built-ins:
   ``repro_torch.scenarios.generators`` with their default configs.
 
 ``register`` adds custom scenarios (idempotent per name unless
-``overwrite=True``).  The reference's chaos families are not ported yet
-and raise ``KeyError``.
+``overwrite=True``); use a config dataclass directly when you need
+non-default parameters.
 """
 from __future__ import annotations
 
@@ -27,9 +27,6 @@ from repro_torch.scenarios import generators as _g
 from repro_torch.scenarios.trace import TraceStore
 
 Builder = Callable[[int, Optional[int]], TraceStore]
-
-# Reference scenario names whose port is still queued (ROADMAP.md).
-NOT_PORTED = ("spot-spike", "zone-outage", "capacity-crunch")
 
 _REGISTRY: Dict[str, Builder] = {}
 
@@ -51,11 +48,6 @@ def build_scenario(name: str, seed: int = 0,
     default trace length (ignored by the fixed-size paper workloads)."""
     builder = _REGISTRY.get(name)
     if builder is None:
-        if name in NOT_PORTED:
-            raise KeyError(
-                f"scenario {name!r} is not ported to repro_torch yet "
-                f"(ROADMAP.md Queue 1 item 5, chaos); ported: "
-                f"{names()}")
         raise KeyError(f"unknown scenario {name!r}; one of {names()}")
     return builder(seed, n_jobs)
 
@@ -88,3 +80,13 @@ register("heavy-tail", _family_builder(_g.HeavyTail()))
 register("mix-ramp", _family_builder(_g.MixRamp()))
 register("scale-stress", _family_builder(_g.AutoscalerStress()))
 register("multi-tenant", _family_builder(_g.MultiTenant()))
+
+
+# Chaos families (repro_torch.scenarios.chaos).  Registered builders produce
+# only the workload trace — the disruption schedule rides on
+# ExperimentSpec.failure_injector, wired by chaos.chaos_spec (a scenario
+# name alone can't carry the stateful injector stack).
+from repro_torch.scenarios import chaos as _chaos   # noqa: E402  (needs register)
+
+for _name, _cfg in _chaos.CHAOS_SCENARIOS.items():
+    register(_name, _family_builder(_cfg))

@@ -4,7 +4,9 @@ A :class:`TraceStore` holds one arrival per *row* across NumPy columns
 (arrival time, request sizes, duration, kind/moveable/checkpointable flags,
 template id) plus a small **template table** of interned :class:`PodSpec`
 objects.  Traces are generated (``repro_torch.scenarios.generators``),
-sliced, composed — and replayed *directly* into the engine:
+loaded from external task logs (``repro_torch.scenarios.adapter``),
+saved/loaded as compact JSON or NPZ, sliced, composed — and replayed
+*directly* into the engine:
 
 * **array engine** — ``Simulation``/``Timeline`` batch over the trace's
   ``arrival_time`` column and ``Orchestrator.submit_trace`` bulk-ingests
@@ -23,18 +25,17 @@ spec *identity* (``trace.templates[tid] is arrival.spec``).
 scenario families draw a distinct duration per job while sharing one
 template.  A ``Pod`` shell materialized for such a row carries a
 ``dataclasses.replace``-d spec with the row's true duration.
-
-The reference's ``save`` / ``load`` (JSON and NPZ persistence) are not
-ported yet (ROADMAP.md Queue 1 item 24).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from repro_torch.core.pods import PodKind, PodSpec
+from repro_torch.core.resources import Resources
 from repro_torch.core.workload import Arrival
 
 # Row kind codes (the ``kind`` column; one byte per row).
@@ -42,6 +43,30 @@ KIND_BATCH = 0
 KIND_SERVICE = 1
 
 _KIND_CODE = {PodKind.BATCH: KIND_BATCH, PodKind.SERVICE: KIND_SERVICE}
+
+
+def _spec_to_dict(spec: PodSpec) -> Dict:
+    return {
+        "type_name": spec.type_name,
+        "kind": spec.kind.value,
+        "cpu_m": spec.requests.cpu_m,
+        "mem_mb": spec.requests.mem_mb,
+        "duration_s": spec.duration_s,
+        "moveable": spec.moveable,
+        "checkpointable": spec.checkpointable,
+        "checkpoint_interval_s": spec.checkpoint_interval_s,
+        "scheduler_name": spec.scheduler_name,
+    }
+
+
+def _spec_from_dict(d: Dict) -> PodSpec:
+    return PodSpec(
+        type_name=d["type_name"], kind=PodKind(d["kind"]),
+        requests=Resources(int(d["cpu_m"]), float(d["mem_mb"])),
+        duration_s=float(d["duration_s"]), moveable=bool(d["moveable"]),
+        checkpointable=bool(d["checkpointable"]),
+        checkpoint_interval_s=float(d["checkpoint_interval_s"]),
+        scheduler_name=d.get("scheduler_name", "customScheduler"))
 
 
 class TraceStore:
@@ -234,3 +259,42 @@ class TraceStore:
             return cls([], [], [], name=name)
         return cls(templates, np.concatenate(tids), np.concatenate(times),
                    np.concatenate(durs), name=name)
+
+    # -- persistence -----------------------------------------------------------
+    def save(self, path: str) -> None:
+        """Write the trace to ``path`` — compact JSON (``.json``, exact
+        float round-trip via repr) or compressed NPZ (``.npz``, exact
+        binary) by suffix."""
+        if str(path).endswith(".npz"):
+            np.savez_compressed(
+                path,
+                template_id=self.template_id,
+                arrival_time=self.arrival_time,
+                duration_s=self.duration_s,
+                meta=np.asarray(json.dumps({
+                    "name": self.name,
+                    "templates": [_spec_to_dict(s) for s in self.templates],
+                })))
+            return
+        with open(path, "w") as f:
+            json.dump({
+                "name": self.name,
+                "templates": [_spec_to_dict(s) for s in self.templates],
+                "template_id": self.template_id.tolist(),
+                "arrival_time": self.arrival_time.tolist(),
+                "duration_s": self.duration_s.tolist(),
+            }, f)
+
+    @classmethod
+    def load(cls, path: str) -> "TraceStore":
+        if str(path).endswith(".npz"):
+            with np.load(path, allow_pickle=False) as z:
+                meta = json.loads(str(z["meta"]))
+                return cls([_spec_from_dict(d) for d in meta["templates"]],
+                           z["template_id"], z["arrival_time"],
+                           z["duration_s"], name=meta.get("name", "trace"))
+        with open(path) as f:
+            d = json.load(f)
+        return cls([_spec_from_dict(t) for t in d["templates"]],
+                   d["template_id"], d["arrival_time"], d["duration_s"],
+                   name=d.get("name", "trace"))

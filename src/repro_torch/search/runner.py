@@ -25,15 +25,14 @@ same scenario builds its trace once.  Memoizing per process (rather than
 shipping TraceStores through pickle) also keeps task payloads tiny.
 
 ``workers="lanes"`` evaluates void/void static-cluster cells on the lane
-engine (:mod:`repro_torch.manyworld`), on the card by default.  Not
-ported yet (ROADMAP.md Queue 1 items 5 and 18): chaos cells
-(``chaos=True``) and trace capture (``obs_dir``) raise
-``NotImplementedError``; the reference's crash-test hook (an environment
+engine (:mod:`repro_torch.manyworld`), on the card by default, and every
+other cell serially.  The reference's crash-test hook (an environment
 variable) is left out, since the port reads none.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from concurrent.futures import ProcessPoolExecutor
 from concurrent.futures.process import BrokenProcessPool
@@ -106,10 +105,10 @@ class CellSpec:
         return ".".join(parts)
 
     def to_experiment_spec(self, trace) -> ExperimentSpec:
+        injector = None
         if self.chaos:
-            raise NotImplementedError(
-                f"cell {self.label}: chaos scenarios are not ported to "
-                "repro_torch yet (ROADMAP.md Queue 1 item 5, chaos)")
+            from repro_torch.scenarios.chaos import CHAOS_SCENARIOS
+            injector = CHAOS_SCENARIOS[self.scenario].injector(self.seed)
         return ExperimentSpec(
             trace=trace, scheduler=self.scheduler, autoscaler=self.autoscaler,
             rescheduler=self.rescheduler, seed=self.seed, engine=self.engine,
@@ -124,7 +123,8 @@ class CellSpec:
             forecast_bin_s=self.forecast_bin_s,
             forecast_lead_s=self.forecast_lead_s,
             forecast_headroom=self.forecast_headroom,
-            forecast_conf_min=self.forecast_conf_min)
+            forecast_conf_min=self.forecast_conf_min,
+            failure_injector=injector)
 
 
 class CellError(RuntimeError):
@@ -173,11 +173,6 @@ def run_cell(cell: CellSpec) -> dict:
     larger than the node template) short-circuit to a zeroed
     ``completed=False`` row instead of simulating a hopeless 48 h.
     """
-    if cell.obs_dir is not None:
-        raise NotImplementedError(
-            f"cell {cell.label}: obs_dir needs the flight recorder, which is "
-            "not ported to repro_torch yet (ROADMAP.md Queue 1 item 18, "
-            "obs/)")
     trace = _get_trace(cell.scenario, cell.seed, cell.n_jobs)
     if _infeasible(cell, trace):
         row = {"label": cell.label, "cell": dataclasses.asdict(cell),
@@ -189,7 +184,13 @@ def run_cell(cell: CellSpec) -> dict:
     reset_id_counters()
     spec = cell.to_experiment_spec(trace)
     t0 = time.perf_counter()
-    result = run_experiment(spec)
+    if cell.obs_dir is not None:
+        from repro_torch.obs import run_recorded
+        result, recorder = run_recorded(spec)
+        os.makedirs(cell.obs_dir, exist_ok=True)
+        recorder.export(os.path.join(cell.obs_dir, f"{cell.label}.npz"))
+    else:
+        result = run_experiment(spec)
     wall = time.perf_counter() - t0
     row = {"label": cell.label, "cell": dataclasses.asdict(cell),
            "n_jobs": trace.n, "infeasible": False}
@@ -199,13 +200,10 @@ def run_cell(cell: CellSpec) -> dict:
     return row
 
 
-def run_cells(cells: Sequence[CellSpec], workers="lanes",
+def run_cells(cells: Sequence[CellSpec], workers=1,
               max_tasks_per_child: Optional[int] = None,
               device=None) -> List[dict]:
     """Run every cell; results come back in the order cells were given.
-
-    The port's default is the lane engine (``workers="lanes"``), the path
-    it had before the serial simulator came; the reference's is 1.
 
     ``workers <= 1`` runs serially in-process — the reference path the
     pool is tested bit-identical against.  With a pool, futures are
@@ -218,10 +216,9 @@ def run_cells(cells: Sequence[CellSpec], workers="lanes",
     (`repro_torch.manyworld`) on ``device`` (``None`` means CUDA): void/void
     static-cluster cells run batched in one lane program per bucket — same
     rows, same order, bit-identical metrics (``wall_s`` becomes the lane's
-    share of its batch).  A cell outside that envelope raises
-    ``ValueError`` naming it; run such cells with ``workers=1`` or a pool.
-    ``device`` is read only by the lane engine: the serial simulator runs
-    on the host.
+    share of its batch).  Every cell outside that envelope runs through
+    the serial ``run_cell`` in its place.  ``device`` is read only by the
+    lane engine: the serial simulator runs on the host.
     """
     cells = list(cells)
     if workers == "lanes":

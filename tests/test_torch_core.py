@@ -199,18 +199,25 @@ def test_lanes_equal_serial_on_void_void_cells():
     assert lanes == _strip(port_runner.run_cells(cells, workers=1))
 
 
-def test_unported_options_raise_naming_roadmap():
-    cell = port_runner.CellSpec(scenario="paper-mixed")
-    with pytest.raises(port_runner.CellError, match="ROADMAP"):
-        port_runner.run_cells([dataclasses.replace(cell, chaos=True)],
-                              workers=1)
-    with pytest.raises(port_runner.CellError, match="ROADMAP"):
-        port_runner.run_cells([dataclasses.replace(cell, obs_dir="x")],
-                              workers=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.run_experiment(P.ExperimentSpec(obs=True))
-    with pytest.raises(KeyError, match="ROADMAP"):
-        port_scenario("zone-outage")
+def test_unported_options_raise_naming_roadmap(tmp_path):
+    """The options that once raised naming ROADMAP.md now run as the
+    reference's: a chaos cell, a cell's ``obs_dir``, ``obs=True`` and the
+    chaos families in the registry."""
+    changes = (dict(scenario="spot-spike", n_jobs=60, chaos=True),
+               dict(scenario="paper-mixed", obs_dir=str(tmp_path)))
+    for change in changes:
+        cell = port_runner.CellSpec(**change)
+        got = port_runner.run_cells([cell], workers=1)
+        if "obs_dir" in change:
+            assert (tmp_path / f"{cell.label}.npz").exists()
+        want = ref_runner.run_cells(
+            [ref_runner.CellSpec(**change)], workers=1)
+        assert _strip(got) == _strip(want)
+    want, got = _both(workload="mixed", obs=True)
+    assert got == want
+    want = ref_scenario("zone-outage", seed=1, n_jobs=30)
+    assert (port_scenario("zone-outage", seed=1, n_jobs=30).arrival_time
+            == want.arrival_time).all()
 
 
 def test_port_sources_import_neither_jax_nor_repro_nor_read_environ():

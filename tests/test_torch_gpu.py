@@ -119,9 +119,9 @@ def test_rows_on_cuda_equal_cpu(cuda):
                       initial_workers=3)
              for s in ("heavy-tail", "diurnal") for seed in range(2)]
     before = lane_kernel.launches
-    on_gpu = run_cells(cells)                 # device=None is the card
+    on_gpu = run_cells(cells, workers="lanes")   # device=None is the card
     assert lane_kernel.launches > before
-    on_cpu = run_cells(cells, device="cpu")
+    on_cpu = run_cells(cells, workers="lanes", device="cpu")
     for g, c in zip(on_gpu, on_cpu):
         g.pop("wall_s"), c.pop("wall_s")
         assert g == c

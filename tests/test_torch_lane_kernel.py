@@ -172,8 +172,9 @@ def test_run_cells_lanes_records_its_stages():
                       n_jobs=16, initial_workers=2) for s in range(2)]
     rows = evaluator.run_cells_lanes(cells, device="cpu")
     assert len(rows) == 2
-    assert set(evaluator.stage_s) == {"prepare_s", "stack_upload_s",
-                                      "lane_program_s", "download_s",
-                                      "host_replay_s"}
+    assert set(evaluator.stage_s) == {"prepare_s", "serial_s",
+                                      "stack_upload_s", "lane_program_s",
+                                      "download_s", "host_replay_s"}
     assert all(v >= 0.0 for v in evaluator.stage_s.values())
     assert evaluator.stage_s["lane_program_s"] > 0.0
+    assert evaluator.stage_s["serial_s"] == 0.0   # every cell a lane
