@@ -37,7 +37,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    serving prefill's shape (1, 4, 3072, 384) bfloat16 with the state out,
    float32 with a state in and out, T = L = 64 in both dtypes), the
    parallel kernel's envelope (a state in and out, B*H > 4, dv != dk,
-   T 3008) and the forecaster's training batch (B 64) (each case through
+   T 3008), xLSTM-125M's training call in phase 33 ((4, 4, 512, 384)
+   bfloat16, the parallel kernel, also without the state out) and the
+   forecaster's training batch (B 64) (each case through
    the kernel the wrapper picks; all three kernels must be reached; the
    parallel kernel's cases also against its algorithm in plain PyTorch
    with the same bfloat16 hi/lo operands); at the forecaster's shape the
@@ -69,7 +71,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and cross attention's T 4 and 384 against S 1500, both without a mask;
    the decoder's causal T 384; 16 heads of 64) and InternVL2-26B's (GQA
    48/8 at hd 128, causal, T 1088 and 3072) shapes, in bf16 and float32,
-   and at the training shape (B 2, T 4096); device
+   at phase 33's MoE training shape (B 4, 16 heads of 128, causal,
+   T 512) and at the training shape (B 2, T 4096); device
    times at T 3072 and 1674 of the serving shape and at DeepSeekMoE's,
    Command-R's, Whisper's and InternVL2's shapes of the bf16 kernel, the
    float32 kernel, the plain version and
@@ -119,15 +122,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
 16. train main — RecurrentGemma-9B at its published widths cut to 3
    layers (one Griffin superblock, 1.64 G parameters, float32
    masters, bfloat16 compute, AdamW state on the card) trained through
-   ``Trainer`` for 4 steps of 2 × 2 × 4096 tokens (accum 2, chunked
+   ``Trainer`` for 2 steps of 2 × 2 × 4096 tokens (accum 2, chunked
    cross-entropy, remat per superblock): step ms, tokens/s, model
    FLOP/s, peak device memory, kernel launches per step, the
-   plain-version backwards' share (CUDA events), one profiled step split
-   into the port's kernels, cuBLAS, the plain-version backward recomputes
-   and the rest; then a trainer checkpointing every 2 steps, preempted
-   by ``request_stop`` after step 2 (its 19.7 GB checkpoint is the one
-   the phase writes), and one resumed from that checkpoint, whose
-   losses must equal (``==``) the uninterrupted run's;
+   plain-version backwards' share (CUDA events); then a trainer
+   checkpointing every 2 steps, preempted by ``request_stop`` after
+   step 1 (its 19.7 GB checkpoint is the one the phase writes), and one
+   resumed from that checkpoint, whose loss must equal (``==``) the
+   uninterrupted run's, whose final train state (parameters, AdamW
+   moments and step) must equal the uninterrupted trainer's leaf for
+   leaf (by per-leaf digests of the bits), and whose step runs under
+   ``torch.profiler``, split into the port's kernels, cuBLAS, the
+   plain-version backward recomputes and the rest;
 17. xlstm golden — the fixture ``tests/data/torch_xlstm_serve_golden``
    (a float32 xLSTM-125M twin at full width cut to 8 layers, its
    parameters redrawn from the fixture's seed and checked by digest;
@@ -286,7 +292,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    forecast event the ring retains within ``FORECAST_TOL`` of the
    fixture's last calls, the
    bundle through ``save_bundle`` / ``load_bundle`` in JSON and NPZ,
-   ``render_report``; its wall beside phase 31's and its events by kind.
+   ``render_report``; its wall beside phase 31's and its events by kind;
+33. live — the paper's orchestrator scheduling real training jobs on
+   the card (``repro_torch.cloud.local_provider``): job A, xLSTM-125M at
+   its published widths and depth (184,237,896 parameters), and job B,
+   DeepSeekMoE-16B's widths cut to 2 of 28 layers (a dense layer and one
+   MoE layer of 64 routed + 2 shared experts), 4 steps of 4 × 512
+   tokens each (phases 6 and 9 hold both kernels against their plain
+   versions at these jobs' shapes); first each alone (step ms, tokens/s, model FLOP/s by
+   active parameters, peak memory, launches a step: 18 of the parallel
+   mLSTM kernel for A, 4 of flash for B; A's last step calls the sLSTM
+   walk without its 256-step remat: the peak of a step with and without
+   it, and of one walk alone both ways); then both as batch pods bound by best fit to one static node
+   of ``LocalCloudProvider`` and trained at once in their threads, job A
+   evicted once its trainer has finished step 2, checkpointed, rebound
+   and resumed: both pods ``SUCCEEDED``, each job's losses ``==`` its
+   solo run's, the node billed, the launches as
+   predicted, no exception in a job thread; the live wall against the
+   solo walls, A's checkpoint save and restore seconds, the cycles; last
+   ``repro_torch.launch.orchestrate --compare --workload mixed`` in
+   process, its rows ``==`` phase 31's fixture rows.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -812,6 +837,10 @@ MLSTM_TRAIN_CASE = (64, 2, 16, 32, 32, 64, "float32", False)
 # k, v (1, 4, 3072, 384) bfloat16, chunk 64, the final state out; timed
 # in phase 6 and the serving shape of phase 13's gradient check.
 MLSTM_XLSTM_CASE = (1, 4, 3072, 384, 384, 64, "bfloat16", False)
+# xLSTM-125M's training call in phase 33 (job A: 4 sequences of 512
+# tokens, no state in or out); checked in phase 6 both with the state
+# out and as the training path calls it, without.
+MLSTM_LIVE_CASE = (4, 4, 512, 384, 384, 64, "bfloat16", False)
 # Prefill lengths at which phase 6 times the parallel kernel beside the
 # block kernel (the serve cell's prompts run 256-3008 tokens).
 MLSTM_XLSTM_TIMED_T = (256, 1024, 2048, 3072)
@@ -826,7 +855,8 @@ MLSTM_XLSTM_TIMED_T = (256, 1024, 2048, 3072)
 # 384-wide heads (the serving prefill's shape, MLSTM_XLSTM_CASE, with the
 # state out; float32 with a state in and out; T = L = 64 in both
 # dtypes); the parallel kernel's envelope (a state in and out at dk 384,
-# B*H > 4 with dv != dk, T 3008 with dv > dk); last, the forecaster's
+# B*H > 4 with dv != dk, T 3008 with dv > dk); xLSTM-125M's training
+# shape in the live phase (MLSTM_LIVE_CASE); last, the forecaster's
 # training shape.
 MLSTM_CASES = (
     (8668, 2, 16, 32, 32, 64, "float32", False),
@@ -850,6 +880,7 @@ MLSTM_CASES = (
     (2, 4, 256, 384, 384, 64, "bfloat16", True),
     (5, 2, 192, 64, 128, 64, "bfloat16", True),
     (3, 2, 3008, 128, 320, 64, "bfloat16", True),
+    MLSTM_LIVE_CASE,
     MLSTM_TRAIN_CASE,
 )
 
@@ -900,14 +931,19 @@ def _share_of_tol(a, b, tol) -> float:
                   / (tol["atol"] + tol["rtol"] * b.float().abs())).max())
 
 
+def _mlstm_name(case) -> str:
+    B, H, T, dk, dv, chunk, dtype, with_state = case
+    return f"{B}x{H}x{T}x{dk}x{dv}/L{min(chunk, T)}/{dtype}" + (
+        "/state" if with_state else "")
+
+
 def phase_mlstm(torch, np, dev) -> dict:
     from repro_torch.kernels import mlstm_chunkwise as mlstm
     results = {}
     before = (mlstm.launches, mlstm.row_launches, mlstm.parallel_launches)
     for case in MLSTM_CASES:
         B, H, T, dk, dv, chunk, dtype, with_state = case
-        name = f"{B}x{H}x{T}x{dk}x{dv}/L{min(chunk, T)}/{dtype}" + (
-            "/state" if with_state else "")
+        name = _mlstm_name(case)
         inputs, state = _mlstm_inputs(torch, np, case, dev)
         h, s = mlstm.mlstm_chunkwise(*inputs, state=state, chunk=chunk)
         torch.cuda.synchronize()
@@ -938,6 +974,15 @@ def phase_mlstm(torch, np, dev) -> dict:
             results[name]["worst_share_of_tol_vs_parallel_plain"] = max(
                 _share_of_tol(a, b, tol)
                 for a, b in [(h, ph)] + list(zip(s, ps)))
+        if case == MLSTM_LIVE_CASE:
+            # The training path's call: the parallel kernel, no state out.
+            h_train, s_train = mlstm.mlstm_chunkwise(
+                *inputs, chunk=chunk, return_state=False)
+            torch.cuda.synchronize()
+            ok = (ok and kernel == "parallel" and s_train is None
+                  and torch.allclose(h_train.float(), want_h.float(), **tol))
+            results[name]["train_call_max_abs_err"] = float(
+                (h_train.float() - want_h.float()).abs().max())
         if not ok:
             emit({"phase": "mlstm", "cases": results})
             raise SystemExit(f"mlstm_chunkwise disagrees with its plain "
@@ -1440,6 +1485,9 @@ FLASH_TRAIN_CASE = (2, 16, 1, 4096, 4096, 256, True, 2048, "bfloat16")
 # the serving shape.  Granite-3.0-1B-A400M's: GQA 16/8 at hd 64.
 FLASH_MOE_CASE = (1, 16, 16, 3072, 3072, 128, True, 0, "bfloat16")
 FLASH_GRANITE_CASE = (1, 16, 8, 1024, 1024, 64, True, 0, "bfloat16")
+# DeepSeekMoE-16B's attention in training in phase 33 (job B: 4
+# sequences of 512 tokens).
+FLASH_LIVE_CASE = (4, 16, 16, 512, 512, 128, True, 0, "bfloat16")
 # Command-R-35B's attention at its serve cell's longest prompt (phase
 # 23): GQA 64/8 at hd 128, causal, no window; timed in phase 9.  Qwen1.5-
 # 32B's prefill after padding 40 heads to 48 (phase 24, which times it
@@ -1473,7 +1521,8 @@ FLASH_INTERNVL_CASES = {
 # hd not a multiple of 8), S > T with a window and no causal mask, and
 # T = S = 1 without a causal mask; the model cells' shapes, Whisper's and
 # InternVL2's also in float32 (their fixtures' dtype, phases 25 and 27);
-# last, the training cell's shape.
+# the live phase's MoE training shape (FLASH_LIVE_CASE); last, the
+# training cell's shape.
 FLASH_CASES = (
     (1, 16, 1, 3072, 3072, 256, True, 2048, "bfloat16"),
     (1, 1, 1, 128, 128, 64, True, 0, "float32"),
@@ -1507,6 +1556,7 @@ FLASH_CASES = (
     (1, 16, 16, 1500, 1500, 64, False, 0, "float32"),
     (1, 16, 16, 384, 1500, 64, False, 0, "float32"),
     (1, 48, 8, 1088, 1088, 128, True, 0, "float32"),
+    FLASH_LIVE_CASE,
     FLASH_TRAIN_CASE,
 )
 # Serving-path lengths timed in phase 9: the longest prompt's bucket and
@@ -2938,8 +2988,12 @@ TRAIN_GOLDEN = ROOT / "tests" / "data" / "torch_train_golden.npz"
 TRAIN_LAYERS = 3
 TRAIN_SEQ = 4096               # train_4k's sequence length
 TRAIN_BATCH = 2                # sequences a microbatch (accum from config)
-TRAIN_STEPS = 4
-TRAIN_PREEMPT_AT = 2
+# 2 uninterrupted steps, then a trainer preempted after step 1 and one
+# resumed for step 2, the profiled step.  The resumed step's loss reads
+# only the restored parameters, so the final states are compared too:
+# the restored moments and step count reach them.
+TRAIN_STEPS = 2
+TRAIN_PREEMPT_AT = 1
 # FORECAST_eval.json's configuration (the golden forecaster's): 1000
 # steps at train_forecaster's batch 64 and lr 3e-3.  At its 300-step
 # default neither package beats AR(1) on every seed
@@ -3053,21 +3107,58 @@ def _plain_backward_timer(torch):
     return pairs, undo
 
 
+def _state_digest(torch, state) -> dict:
+    """{key: [sum, weighted sum]} of a train state's leaves, keyed as
+    ``flatten_with_keys`` keys them: each tensor's bit patterns read as
+    integers of its width and summed in int64 on the card (wrapping),
+    plainly and weighted by position within 2^26-element pieces.  Two
+    states whose digests are equal hold the same bits leaf for leaf up
+    to a collision; one changed element changes both sums.  A leaf that
+    is not a tensor is kept as it is."""
+    from repro_torch.train.checkpoint import flatten_with_keys
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    piece = 1 << 26
+    weight = None
+    sums = {}
+    for key, leaf in flatten_with_keys(state):
+        if not torch.is_tensor(leaf):
+            sums[key] = leaf
+            continue
+        bits = leaf.detach().contiguous().view(
+            ints[leaf.element_size()]).reshape(-1)
+        if weight is None:
+            weight = torch.arange(1, piece + 1, device=bits.device,
+                                  dtype=torch.int64)
+        acc = torch.zeros(2, dtype=torch.int64, device=bits.device)
+        for i in range(0, bits.numel(), piece):
+            b = bits[i:i + piece].long()
+            acc[0] += b.sum()
+            acc[1] += (b * weight[:b.numel()]).sum()
+        sums[key] = acc
+    out = {k: v.tolist() if torch.is_tensor(v) else v
+           for k, v in sums.items()}
+    return out
+
+
 def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
     """Full-width RecurrentGemma-9B cut to 3 layers, trained through
-    ``Trainer`` on the card: ``steps`` steps of 2 × 2 × 4096 tokens, then
-    one profiled step; then a second trainer, checkpointing every 2
-    steps, preempted by ``request_stop`` after step 2, and a third that
-    resumes from that checkpoint, whose losses must equal (``==``) the
-    first run's: the restored state is bit for bit the saved one, and
+    ``Trainer`` on the card: ``steps`` steps of 2 × 2 × 4096 tokens; then
+    a second trainer, checkpointing every 2 steps, preempted by
+    ``request_stop`` after step ``TRAIN_PREEMPT_AT``, and a third that
+    resumes from that checkpoint and runs under ``torch.profiler`` (the
+    profiled step), whose losses must equal (``==``) the first run's:
+    the restored state is bit for bit the saved one, and
     every kernel, cuBLAS call and reduction of a step sums in a fixed
-    order.
+    order.  The third trainer's final state (parameters, AdamW moments,
+    step) must equal the first's leaf for leaf (``_state_digest``): its
+    losses read only the restored parameters, the final state also the
+    restored moments and step count.
 
     One checkpoint of this state is 19.7 GB (float32 parameters and AdamW
     moments), so the phase writes one, the preempted trainer's, and keeps
     a run's disk writes near that size: the first run keeps no
-    checkpoints, and the resumed trainer's saves (step 4) are counted,
-    not written."""
+    checkpoints, and the resumed trainer's saves (its last step) are
+    counted, not written."""
     import dataclasses
     import gc
     import os
@@ -3129,7 +3220,6 @@ def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
             return out
 
         tr._step_fn = timed_step
-        return inner
 
     def free(tr):
         tr.state = None
@@ -3146,8 +3236,7 @@ def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
         line["init_s"] = time.perf_counter() - t0
         step_ms, per_step, plain_ms = [], [], []
         pairs, undo = _plain_backward_timer(torch)
-        inner = instrument(tr, "uninterrupted", step_ms, per_step, pairs,
-                           plain_ms)
+        instrument(tr, "uninterrupted", step_ms, per_step, pairs, plain_ms)
         torch.cuda.reset_peak_memory_stats()
         flash.launches = 0
         rglru.launches = rglru.chunked_launches = 0
@@ -3181,27 +3270,15 @@ def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
         emit({k: line[k] for k in ("phase", "step_ms", "losses",
                                    "launches", "peak_device_bytes",
                                    "plain_backward_share")})
-
-        # One more step under torch.profiler (the first run is over).
-        batch = tr._batch(tr.step)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            tr.state, _ = inner(tr.state, batch)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
         t0 = time.perf_counter()
-        split = _categorise(prof, _autograd.PLAIN_BACKWARD)
-        split.update({"wall_ms": wall * 1e3,
-                      "analysis_s": time.perf_counter() - t0})
-        del prof
-        line["profiled_step"] = split
-        emit({"phase": "train_main_profile", **split})
+        want_digest = _state_digest(torch, tr.state)
+        digest_s = time.perf_counter() - t0
+
         free(tr)
         del tr
 
-        # Preemption after step 2 (one checkpoint written), then resume.
+        # Preemption after TRAIN_PREEMPT_AT (one checkpoint written), then
+        # resume.
         holder = []
 
         def stop_after(msg):
@@ -3223,8 +3300,24 @@ def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
         resumed_at = tr3.step
         not_written = []
         tr3.ckpt.save = lambda step, *a, **kw: not_written.append(step)
-        r3 = tr3.run()
+        # The resumed trainer's step runs under torch.profiler: the
+        # profiled step (its run() of one step, batch and logging in).
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            r3 = tr3.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        split = _categorise(prof, _autograd.PLAIN_BACKWARD)
+        split.update({"wall_ms": wall * 1e3,
+                      "analysis_s": time.perf_counter() - t0})
+        del prof
+        line["profiled_step"] = split
+        emit({"phase": "train_main_profile", **split})
         resumed = {h["step"]: h["loss"] for h in tr3.history}
+        got_digest = _state_digest(torch, tr3.state)
         free(tr3)
         del tr3
         diffs = {s: resumed[s] - losses[s - 1] for s in resumed}
@@ -3238,7 +3331,12 @@ def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
             "resumed_losses": {str(s): v for s, v in resumed.items()},
             "loss_diff_vs_uninterrupted": {str(s): d
                                            for s, d in diffs.items()},
-            "equal": all(d == 0.0 for d in diffs.values())}
+            "equal": all(d == 0.0 for d in diffs.values()),
+            "state_leaves": len(want_digest),
+            "state_leaves_equal": sum(got_digest.get(k) == v
+                                      for k, v in want_digest.items()),
+            "state_equal": got_digest == want_digest,
+            "state_digest_s": digest_s}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     line["seconds"] = time.perf_counter() - t_phase
@@ -3250,11 +3348,12 @@ def phase_train_main(torch, np, dev, steps: int = TRAIN_STEPS) -> dict:
           and resumed_at == TRAIN_PREEMPT_AT and r3["completed"] == 1.0
           and sorted(resumed) == list(range(TRAIN_PREEMPT_AT + 1,
                                             steps + 1))
-          and line["preempt"]["equal"])
+          and line["preempt"]["equal"] and line["preempt"]["state_equal"])
     if not ok:
         raise SystemExit("train main: the run, its kernel launches or its "
                          "preemption and resume failed, or the resumed "
-                         "losses differ from the uninterrupted run's")
+                         "losses or final state differ from the "
+                         "uninterrupted run's")
     return line
 
 
@@ -4148,6 +4247,454 @@ def phase_chaos_search_obs(torch, np, dev, orch) -> dict:
     return line
 
 
+# Phase 33: the live cluster.  Two torch training jobs on one card under
+# the paper's orchestrator: job A, xLSTM-125M at its published widths and
+# depth, evicted once and resumed from its checkpoint; job B,
+# DeepSeekMoE-16B's widths cut to 2 of its 28 layers (the dense first
+# layer and one MoE layer), never evicted.
+LIVE_SEQ = 512                 # two sLSTM remat chunks; one MoE group
+LIVE_BATCH = 4
+LIVE_STEPS = 4
+LIVE_EVICT_AT = 2              # evict job A once it has finished step 2
+LIVE_MOE_LAYERS = 2
+LIVE_CYCLE_S = 0.1
+LIVE_TIMEOUT_S = 300.0
+# Launches a step, predicted from the step's structure: a superblock's
+# forward runs twice (the step's, and its checkpoint's recompute in the
+# backward, whose own backward differentiates the plain version), so
+# xLSTM-125M's 9 mLSTM blocks launch the parallel mLSTM kernel 18 times
+# a step, and the MoE cut's 2 attention layers launch flash 4 times.
+LIVE_MLSTM_PER_STEP = 18
+LIVE_FLASH_PER_STEP = 4
+# Job B's losses in the live run are held to its solo run's with ``==``,
+# as job A's: the MoE layer's dispatch adds in a fixed order.  Its
+# forward copies each kept choice to its own row (index_copy) and sums a
+# token's K rows along a fixed axis; the backward of the gathers adds
+# through index_put(accumulate=True), which on CUDA sorts the indices
+# stably and adds each row's values in that order.
+
+
+def _whole_walk(xlstm):
+    """The sLSTM walk without the remat plan (one loop over all T, every
+    step's autograd state kept), for the phase's memory comparison."""
+    def walk(gx, r_h, bias, cfg):
+        st = xlstm.slstm_decode_init(cfg, gx.shape[0], gx.device)
+        return xlstm._walk_steps(gx, r_h, bias,
+                                 *(st[k] for k in ("c", "n", "m", "h")))
+    return walk
+
+
+def _walk_peak(torch, xlstm, cfg, dev, walk) -> dict:
+    """One sLSTM layer's walk alone at the job's shape (gx (B, T, 4, D),
+    r_h and bias in bfloat16, as the train step hands them over): the
+    peak of its forward and backward above what was allocated before,
+    and its seconds."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B, T, D, H = LIVE_BATCH, LIVE_SEQ, cfg.d_model, cfg.num_heads
+    bf16 = torch.bfloat16
+    gx = torch.randn((B, T, 4, D), generator=gen, device=dev).to(bf16)
+    r_h = (0.1 * torch.randn((H, D // H, 4, D // H), generator=gen,
+                             device=dev)).to(bf16)
+    bias = torch.zeros((4, D), device=dev, dtype=bf16)
+    for t in (gx, r_h, bias):
+        t.requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    walk(gx, r_h, bias, cfg)[0].sum().backward()
+    torch.cuda.synchronize()
+    return {"peak_above_inputs_bytes": torch.cuda.max_memory_allocated()
+            - base, "seconds": time.perf_counter() - t0}
+
+
+def phase_live(torch, np, dev) -> dict:
+    """The paper's orchestrator scheduling real training jobs on the
+    card: ``LiveCluster.run`` → ``Orchestrator.cycle`` → ``_sync_jobs``
+    → ``LiveJob.start`` → ``Trainer.run`` in a thread → ``evict`` →
+    ``request_stop`` → checkpoint → rebind → resume.
+
+    First each job alone (its solo run: step ms, tokens/s, model FLOP/s,
+    peak memory, launches a step), job A's last step with the sLSTM walk
+    called without the remat plan (the peak of a step with and without
+    it), and one sLSTM walk alone both ways; then both jobs as two batch
+    pods on one static node of ``LocalCloudProvider(Resources(2000,
+    8192))``, best-fit binding both, job A evicted once its trainer has
+    finished step ``LIVE_EVICT_AT``.  Gates: both pods ``SUCCEEDED``; A
+    evicted once and resumed at the step it stopped at; each job's
+    losses ``==`` its solo run's; the node billed; the kernels launched
+    as predicted in every run, at the shapes phases 6 and 9 hold against
+    the plain versions (``MLSTM_LIVE_CASE``, ``FLASH_LIVE_CASE``); no
+    exception in a job
+    thread (caught by ``threading.excepthook``: a job thread that raises
+    dies without a result, and the cluster would wait on it until its
+    timeout).  Last,
+    ``repro_torch.launch.orchestrate --compare --workload mixed`` in
+    process: its rows ``==`` phase 31's fixture rows and its text
+    ``==`` those rows printed."""
+    import contextlib
+    import dataclasses
+    import gc
+    import io
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.cloud.local_provider import (LiveCluster,
+                                                  LocalCloudProvider)
+    from repro_torch.configs import get_config
+    from repro_torch.core import (CostModel, ExperimentResult, PodKind,
+                                  PodPhase, PodSpec, Resources, golden,
+                                  reset_id_counters)
+    from repro_torch.kernels import flash_attention as flash
+    from repro_torch.kernels import mlstm_chunkwise as mlstm
+    from repro_torch.launch import orchestrate
+    from repro_torch.models import transformer as tf
+    from repro_torch.models import xlstm
+    from repro_torch.models.params import count_params
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.data import DataConfig
+    from repro_torch.train.optimizer import OptimizerConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    t_phase = time.perf_counter()
+    cfgs = {"A": get_config("xlstm-125m"),
+            "B": dataclasses.replace(get_config("deepseek-moe-16b"),
+                                     num_layers=LIVE_MOE_LAYERS)}
+    tokens = LIVE_BATCH * LIVE_SEQ
+    n_model = {"A": count_params(tf.model_specs(cfgs["A"])),
+               "B": cfgs["B"].active_param_count()}
+    line = {"phase": "live", "steps": LIVE_STEPS, "batch": LIVE_BATCH,
+            "seq_len": LIVE_SEQ, "tokens_per_step": tokens,
+            "evict_after_step": LIVE_EVICT_AT,
+            "jobs": {"A": {"arch": cfgs["A"].name,
+                           "layers": cfgs["A"].num_layers,
+                           "params": n_model["A"]},
+                     "B": {"arch": cfgs["B"].name,
+                           "layers": cfgs["B"].num_layers,
+                           "params": count_params(tf.model_specs(cfgs["B"])),
+                           "active_params": n_model["B"]}},
+            "predicted_per_step": {"mlstm_parallel": LIVE_MLSTM_PER_STEP,
+                                   "flash_attention": LIVE_FLASH_PER_STEP}}
+    # The kernels' calls on this path are the cases phases 6 and 9 checked.
+    _, heads, dh = xlstm._dims(cfgs["A"])
+    checks = {
+        "cases/mlstm_live_shape_checked": MLSTM_LIVE_CASE == (
+            LIVE_BATCH, heads, LIVE_SEQ, dh, dh, xlstm.MLSTM_CHUNK,
+            cfgs["A"].dtype, False),
+        "cases/flash_live_shape_checked": FLASH_LIVE_CASE == (
+            LIVE_BATCH, cfgs["B"].num_heads, cfgs["B"].num_kv_heads,
+            LIVE_SEQ, LIVE_SEQ, cfgs["B"].head_dim_, True,
+            cfgs["B"].sliding_window, cfgs["B"].dtype)}
+
+    def counts():
+        return {"mlstm_parallel": mlstm.parallel_launches,
+                "mlstm_other": mlstm.launches - mlstm.parallel_launches,
+                "flash_attention": flash.launches}
+
+    def zero_counts():
+        mlstm.launches = mlstm.row_launches = mlstm.parallel_launches = 0
+        flash.launches = 0
+
+    def factory(job, ckpt_dir, built, log=lambda s: None):
+        def build():
+            tr = Trainer(cfgs[job], OptimizerConfig(
+                learning_rate=1e-3, warmup_steps=2, total_steps=LIVE_STEPS),
+                DataConfig(batch_size=LIVE_BATCH, seq_len=LIVE_SEQ, seed=0),
+                TrainerConfig(total_steps=LIVE_STEPS,
+                              checkpoint_every=2 if ckpt_dir else 0,
+                              checkpoint_dir=ckpt_dir, keep_checkpoints=1,
+                              log_every=1, seed=0),
+                log_fn=log, device=dev)
+            built.append(tr)
+            return tr
+        return build
+
+    def losses(trainers):
+        return [h["loss"] for tr in trainers for h in tr.history]
+
+    def release(trainers):
+        for tr in trainers:
+            tr.state = None
+        trainers.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # Each job alone: the yardstick of the live run.  Job A's last step
+    # calls the sLSTM walk without the remat plan (the step's forward, so
+    # its loss, is the same): the peak of a step with and without it.
+    solo = {}
+    whole_walk = _whole_walk(xlstm)
+    for job in ("A", "B"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        built = []
+        zero_counts()
+        t0 = time.perf_counter()
+        tr = factory(job, None, built)()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_bytes = torch.cuda.memory_allocated()
+        inner = tr._step_fn
+        step_ms, per_step, step_peak = [], [], []
+
+        def timed(state, batch, inner=inner, step_ms=step_ms,
+                  per_step=per_step, step_peak=step_peak,
+                  last_whole=job == "A"):
+            before = counts()
+            walk = xlstm._walk
+            if last_whole and len(step_ms) == LIVE_STEPS - 1:
+                xlstm._walk = whole_walk
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                out = inner(state, batch)
+                torch.cuda.synchronize()
+            finally:
+                xlstm._walk = walk
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            step_peak.append(torch.cuda.max_memory_allocated())
+            per_step.append({k: v - before[k] for k, v in counts().items()})
+            return out
+
+        tr._step_fn = timed
+        t0 = time.perf_counter()
+        result = tr.run()
+        run_s = time.perf_counter() - t0
+        remat = step_ms[:-1] if job == "A" else step_ms
+        med = float(np.median(remat))
+        flops = 6 * n_model[job] * tokens
+        solo[job] = {
+            "result": result, "losses": losses([tr]),
+            "init_s": init_s, "run_s": run_s, "wall_s": init_s + run_s,
+            "state_bytes": state_bytes, "step_ms": step_ms,
+            "step_ms_median": med, "tokens_per_s": tokens / (med * 1e-3),
+            "model_flops_per_step": flops,
+            "model_tflops_per_s": flops / (med * 1e-3) / 1e12,
+            "share_of_989_tflops": flops / (med * 1e-3) / BF16_OPS_PER_S,
+            "peak_device_bytes": max(step_peak), "step_peak_bytes": step_peak,
+            "launches_by_step": per_step}
+        if job == "A":
+            solo[job]["slstm_memory"] = {
+                "step_peak_bytes_remat": max(step_peak[:-1]),
+                "step_peak_bytes_whole_walk": step_peak[-1],
+                "step_ms_median_remat": med,
+                "step_ms_whole_walk": step_ms[-1],
+                "walk_only": {plan: _walk_peak(torch, xlstm, cfgs["A"], dev,
+                                               walk)
+                              for plan, walk in (("remat", xlstm._walk),
+                                                 ("whole_walk",
+                                                  whole_walk))}}
+        release(built)
+        emit({"phase": "live_solo", "job": job, "arch": cfgs[job].name,
+              **{k: solo[job][k] for k in (
+                  "losses", "step_ms", "step_ms_median", "tokens_per_s",
+                  "model_tflops_per_s", "peak_device_bytes", "init_s",
+                  "run_s")},
+              "slstm_memory": solo[job].get("slstm_memory")})
+    checks["solo/completed"] = all(solo[j]["result"]["completed"] == 1.0
+                                   and len(solo[j]["losses"]) == LIVE_STEPS
+                                   for j in solo)
+    checks["solo/A_launches"] = all(
+        s == {"mlstm_parallel": LIVE_MLSTM_PER_STEP, "mlstm_other": 0,
+              "flash_attention": 0}
+        for s in solo["A"]["launches_by_step"])
+    checks["solo/B_launches"] = all(
+        s == {"mlstm_parallel": 0, "mlstm_other": 0,
+              "flash_attention": LIVE_FLASH_PER_STEP}
+        for s in solo["B"]["launches_by_step"])
+
+    # The live run.
+    root = tempfile.mkdtemp(prefix="repro_torch_live_")
+    errors, events = [], []
+    prev_hook = threading.excepthook
+
+    def hook(args):
+        errors.append(f"{args.thread.name}: {args.exc_type.__name__}: "
+                      f"{args.exc_value}")
+        prev_hook(args)
+
+    ckpt_s = {"save": [], "restore": []}
+    orig_save, orig_restore = CheckpointManager.save, CheckpointManager.restore
+
+    def timed_save(self, *a, **kw):
+        t = time.perf_counter()
+        out = orig_save(self, *a, **kw)
+        ckpt_s["save"].append(time.perf_counter() - t)
+        return out
+
+    def timed_restore(self, *a, **kw):
+        t = time.perf_counter()
+        out = orig_restore(self, *a, **kw)
+        torch.cuda.synchronize()
+        ckpt_s["restore"].append(time.perf_counter() - t)
+        return out
+
+    built = {"A": [], "B": []}
+    logs_a = []
+    try:
+        threading.excepthook = hook
+        CheckpointManager.save = timed_save
+        CheckpointManager.restore = timed_restore
+        gc.collect()
+        torch.cuda.empty_cache()
+        cost = CostModel()
+        provider = LocalCloudProvider(Resources(2000, 8192), cost)
+        live = LiveCluster(provider, cycle_period_s=LIVE_CYCLE_S,
+                           log=events.append)
+        cycles = [0]
+        inner_cycle = live.orch.cycle
+
+        def counted_cycle(now):
+            cycles[0] += 1
+            return inner_cycle(now)
+
+        live.orch.cycle = counted_cycle
+        live.add_static_nodes(1)
+        pod_a = live.submit(
+            PodSpec(cfgs["A"].name, PodKind.BATCH, Resources(1000, 4096),
+                    checkpointable=True),
+            factory("A", os.path.join(root, "A"), built["A"],
+                    logs_a.append))
+        pod_b = live.submit(
+            PodSpec(cfgs["B"].name, PodKind.BATCH, Resources(1000, 4096)),
+            factory("B", None, built["B"]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        first_cycle = []
+
+        def until_evict():
+            if not first_cycle:
+                first_cycle.append([(p.phase, p.node_id)
+                                    for p in (pod_a, pod_b)])
+            return bool(errors) or (bool(built["A"]) and
+                                    built["A"][0].step >= LIVE_EVICT_AT)
+
+        ran_to_evict = live.run(until=until_evict, timeout_s=LIVE_TIMEOUT_S)
+        both_bound = (first_cycle[0][0][0] == first_cycle[0][1][0]
+                      == PodPhase.BOUND and first_cycle[0][0][1]
+                      == first_cycle[0][1][1] is not None)
+        t_evict = time.perf_counter()
+        live.evict(pod_a)
+        evict_s = time.perf_counter() - t_evict
+        after_evict = (pod_a.phase, pod_a.incarnation)
+        stopped = built["A"][0].step if built["A"] else None
+        first_result = live.jobs[pod_a.uid].result
+        ran_to_end = live.run(until=lambda: bool(errors) or live.batch_done(),
+                              timeout_s=LIVE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated()
+        total_cost = cost.total_cost(time.time())
+        live_losses = {j: losses(built[j]) for j in built}
+        results = {j: [live.jobs[p.uid].result] for j, p in
+                   (("A", pod_a), ("B", pod_b))}
+        incarnations = {j: p.incarnation for j, p in (("A", pod_a),
+                                                      ("B", pod_b))}
+        phases = {j: p.phase.value for j, p in (("A", pod_a), ("B", pod_b))}
+        resumed_at = [m for m in logs_a if m.startswith("[trainer] resumed")]
+        trainers = {j: len(built[j]) for j in built}
+    finally:
+        threading.excepthook = prev_hook
+        CheckpointManager.save, CheckpointManager.restore = (orig_save,
+                                                             orig_restore)
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(root) for f in fs)
+        shutil.rmtree(root, ignore_errors=True)
+        for trs in built.values():
+            release(trs)
+    steps = LIVE_STEPS
+    checks.update({
+        "live/no_thread_exception": not errors,
+        "live/run_returned_true": ran_to_evict and ran_to_end,
+        "live/both_bound_to_one_node": both_bound,
+        "live/both_succeeded": phases == {"A": "succeeded",
+                                          "B": "succeeded"},
+        "live/A_evicted_pending_incarnation_1": (
+            after_evict == (PodPhase.PENDING, 1) and incarnations["A"] == 1
+            and trainers["A"] == 2),
+        "live/A_stopped_at_or_after_evict_step": (
+            stopped is not None and LIVE_EVICT_AT <= stopped < steps
+            and first_result == {"completed": 0.0, "step": float(stopped)}),
+        "live/A_resumed_where_it_stopped": resumed_at == [
+            f"[trainer] resumed from step {stopped}"],
+        "live/A_losses_equal_solo": live_losses["A"] == solo["A"]["losses"],
+        "live/B_never_evicted": incarnations["B"] == 0 and trainers["B"] == 1,
+        "live/B_losses_finite": len(live_losses["B"]) == steps and bool(
+            np.all(np.isfinite(live_losses["B"]))),
+        "live/B_losses_equal_solo": live_losses["B"] == solo["B"]["losses"],
+        "live/billed": total_cost > 0,
+        "live/launches": launched == {
+            "mlstm_parallel": steps * LIVE_MLSTM_PER_STEP, "mlstm_other": 0,
+            "flash_attention": steps * LIVE_FLASH_PER_STEP}})
+    b_diff = (float(np.max(np.abs(np.subtract(live_losses["B"],
+                                               solo["B"]["losses"]))))
+              if len(live_losses["B"]) == steps else None)
+    line["live"] = {
+        "wall_s": wall, "solo_wall_sum_s": solo["A"]["wall_s"]
+        + solo["B"]["wall_s"],
+        "wall_over_solo_sum": wall / (solo["A"]["wall_s"]
+                                      + solo["B"]["wall_s"]),
+        "cycles": cycles[0], "evict_s": evict_s, "stopped_at": stopped,
+        "first_result": first_result, "resumed": resumed_at,
+        "incarnations": incarnations,
+        "results": results, "losses": live_losses,
+        "B_max_abs_loss_diff": b_diff, "launches": launched,
+        "peak_device_bytes": peak, "total_cost": total_cost,
+        "checkpoint_save_s": ckpt_s["save"],
+        "checkpoint_restore_s": ckpt_s["restore"],
+        "checkpoint_bytes_left": ckpt_bytes, "events": events,
+        "thread_errors": errors}
+    emit({"phase": "live_run", **{k: line["live"][k] for k in (
+        "wall_s", "solo_wall_sum_s", "cycles", "stopped_at", "launches",
+        "checkpoint_save_s", "checkpoint_restore_s", "B_max_abs_loss_diff",
+        "total_cost")}})
+
+    # The orchestration CLI in process, against phase 31's fixture.
+    with open(golden.ORCHESTRATE_FIXTURE) as f:
+        fx = json.load(f)
+    recorded = {}
+    inner_fns = (orchestrate.run_all_combos, orchestrate.run_k8s_baseline)
+    orchestrate.run_all_combos = lambda *a, **kw: recorded.setdefault(
+        "fig3", inner_fns[0](*a, **kw))
+    orchestrate.run_k8s_baseline = lambda *a, **kw: recorded.setdefault(
+        "fig4", inner_fns[1](*a, **kw))
+    got_text = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        reset_id_counters()
+        with contextlib.redirect_stdout(got_text):
+            orchestrate.main(["--compare", "--workload", "mixed"])
+    finally:
+        orchestrate.run_all_combos, orchestrate.run_k8s_baseline = inner_fns
+    cli_s = time.perf_counter() - t0
+    want_text = io.StringIO()
+    k8s = ExperimentResult(**fx["fig4"]["mixed"])
+    with contextlib.redirect_stdout(want_text):
+        print("[orchestrate] workload=mixed (Fig. 3 + Fig. 4)")
+        print(f"  K8S-static n={k8s.max_nodes} cost=${k8s.cost:8.2f} "
+              f"dur={k8s.duration_s:7.0f}s")
+        for row in fx["fig3"]["mixed"]:
+            orchestrate._print(ExperimentResult(**row), k8s.cost)
+    checks["cli/fig3_rows_equal"] = [golden.result_row(r) for r in
+                                     recorded.get("fig3", [])] \
+        == fx["fig3"]["mixed"]
+    checks["cli/fig4_row_equal"] = ("fig4" in recorded and golden.result_row(
+        recorded["fig4"]) == fx["fig4"]["mixed"])
+    checks["cli/text_equal"] = got_text.getvalue() == want_text.getvalue()
+    line.update({"solo": solo, "checks": checks, "cli_s": cli_s,
+                 "cli_text": got_text.getvalue().splitlines(),
+                 "seconds": time.perf_counter() - t_phase})
+    emit(line)
+    bad = [k for k, v in checks.items() if not v]
+    if bad:
+        raise SystemExit(f"live: checks failed: {bad}")
+    return line
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4204,6 +4751,7 @@ def main() -> int:
                 p.wait()
     orch = phase_orchestrate(torch, np, dev)
     cso = phase_chaos_search_obs(torch, np, dev, orch)
+    live = phase_live(torch, np, dev)
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -4256,8 +4804,14 @@ def main() -> int:
         "on_main_path": True,
         "launches_by_path": {
             "xlstm_serve": xs["launches"]["mlstm_parallel"],
-            "xlstm_golden_float32": xg["mlstm_parallel_launches"]},
+            "xlstm_golden_float32": xg["mlstm_parallel_launches"],
+            "live_xlstm": live["live"]["launches"]["mlstm_parallel"]},
         "edge_case_launches": m["launches"]["parallel"],
+        "live_shape": list(MLSTM_LIVE_CASE[:5]),
+        "live_shape_max_abs_err": m["cases"][_mlstm_name(
+            MLSTM_LIVE_CASE)]["max_abs_err_h"],
+        "live_train_call_max_abs_err": m["cases"][_mlstm_name(
+            MLSTM_LIVE_CASE)]["train_call_max_abs_err"],
         "shape": m["xlstm"]["shape"], "dtype": m["xlstm"]["dtype"],
         "max_abs_err": m["xlstm"]["max_abs_err"],
         "worst_share_of_tol": m["xlstm"]["worst_share_of_tol"],
@@ -4320,7 +4874,11 @@ def main() -> int:
             "internvl_serve": vs["launches"]["flash_attention"],
             "vlm_golden_float32": vg["flash_launches"],
             "sharded_train": dp["sharded_flash_launches"],
-            "dryrun_check": dr["flash_launches"]},
+            "dryrun_check": dr["flash_launches"],
+            "live_moe": live["live"]["launches"]["flash_attention"]},
+        "live_shape": list(FLASH_LIVE_CASE[:6]),
+        "live_shape_max_abs_err": fl["cases"][_flash_name(
+            FLASH_LIVE_CASE)]["max_abs_err"],
         "moe_shape": fl["moe_shape"],
         "command_r_shape": fl["command_r_shape"],
         "whisper_shapes": fl["whisper_shapes"],

@@ -5,8 +5,11 @@ launcher and compiles on its own into ``build/repro_torch/<name>-<hash>.so``
 under the repository root (``.gitignore`` lists ``build/``), where ``<hash>`` covers the source and
 the flags, so an edited kernel is rebuilt and an unchanged one is not.
 The build runs on first use; :func:`build_all` starts one ``nvcc`` per
-source, all at once.  Nothing here falls back: a missing ``nvcc`` or a
-failed build raises.
+source, all at once.  One lock serialises :func:`build_all` and
+:func:`load`, so threads that launch their first kernel together start
+one ``nvcc`` a source and load one library.  Nothing here falls back: a
+missing ``nvcc`` or a failed build raises, in every thread that asks
+for the kernel.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -25,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 def sources() -> Dict[str, Path]:
@@ -62,7 +67,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     source, started together.  Returns ``{name: {"seconds", "log",
     "cached"}}``; ``log`` is nvcc's output (``-Xptxas -v``: registers,
     shared memory, spills)."""
-    names = list(sources() if names is None else names)
+    with _LOCK:
+        return _build_all(list(sources() if names is None else names))
+
+
+def _build_all(names) -> Dict[str, dict]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
     running = []
@@ -74,7 +83,8 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             report[name] = {"seconds": 0.0, "cached": True,
                             "log": log.read_text() if log.exists() else ""}
             continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        tmp = lib.with_name(
+            f"{lib.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
@@ -98,7 +108,11 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
 def load(name: str) -> ctypes.CDLL:
     """The built library of kernel ``name``, building it on first use."""
     lib = _LOADED.get(name)
-    if lib is None:
-        build_all([name])
-        lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
-    return lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build_all([name])
+            lib = _LOADED[name] = ctypes.CDLL(str(library_path(name)))
+        return lib

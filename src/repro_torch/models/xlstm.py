@@ -18,7 +18,13 @@ loop, as the reference's ``lax.scan``, with ``x @ w_x`` for all T
 hoisted out of the loop (it does not read h) and the gates summed in the
 reference's order ``gx + gh + bias``.  ``slstm_prefill`` returns the
 output and the final state ``(c, n, m, h)`` from one walk (the reference
-walks twice, to the same values).
+walks twice, to the same values).  Under grad the walk keeps the
+reference's memory plan: ``torch.utils.checkpoint`` over
+``SLSTM_TIME_CHUNK``-step chunks (the whole T as one chunk when T is not
+a multiple of it), the state carried from chunk to chunk, so the
+backward holds one chunk's steps at a time.  The cell is one autograd
+node (:class:`_SLSTMCellStep`) everywhere it runs: the walk, prefill and
+decode.
 
 Dtypes follow the reference: weights are read as ``astype(x.dtype)``
 except the RMS norm's scale (float32), and where the float32 decode
@@ -34,9 +40,10 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.sharding import local_call, shard
+from repro_torch.distributed.sharding import bind_ctx, local_call, shard
 from repro_torch.kernels.mlstm_chunkwise import mlstm_chunkwise
 from repro_torch.models.conv import (causal_conv1d, causal_conv1d_step,
                                      conv_decode_init, conv_specs)
@@ -224,20 +231,67 @@ def slstm_specs(cfg: ArchConfig) -> Dict[str, ParamSpec]:
 SLSTMState = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _slstm_cell(gates: torch.Tensor, state: SLSTMState) -> SLSTMState:
-    """gates: (B, 4, D) raw; state (c, n, m, h) each (B, D) float32."""
-    c, n, m, _ = state
+def _slstm_cell_parts(gates: torch.Tensor, c: torch.Tensor,
+                      n: torch.Tensor, m: torch.Tensor):
+    """The cell's values: the new state (c, n, m, h) and the
+    intermediates its chain rule reads."""
     i_raw, f_raw, z_raw, o_raw = gates.float().unbind(1)
-    log_f = F.logsigmoid(f_raw)
-    m_new = torch.maximum(log_f + m, i_raw)
+    a = F.logsigmoid(f_raw) + m
+    m_new = torch.maximum(a, i_raw)
     i_st = torch.exp(i_raw - m_new)
-    f_st = torch.exp(log_f + m - m_new)
+    f_st = torch.exp(a - m_new)
     z = torch.tanh(z_raw)
     o = torch.sigmoid(o_raw)
     c_new = f_st * c + i_st * z
     n_new = f_st * n + i_st
     h_new = o * c_new / torch.clamp_min(n_new, 1.0)
-    return c_new, n_new, m_new, h_new
+    return (c_new, n_new, m_new, h_new), (i_raw, f_raw, a, i_st, f_st, z, o)
+
+
+class _SLSTMCellStep(torch.autograd.Function):
+    """The cell as one autograd node.  The forward runs
+    :func:`_slstm_cell_parts` and saves only its inputs; the backward
+    recomputes the cell and applies the chain rule by hand, with
+    autograd's formulas for each op (``maximum`` halves the gradient on
+    ties, ``clamp_min`` passes it where ``n >= 1``).  Under grad the walk
+    runs up to three times a step (the step, the superblock's recompute,
+    the chunk's recompute), and each of the ops' ~20 nodes and ~20 saved
+    tensors a time step would cost host time on every pass."""
+
+    @staticmethod
+    def forward(ctx, gates, c, n, m):
+        ctx.save_for_backward(gates, c, n, m)
+        return _slstm_cell_parts(gates, c, n, m)[0]
+
+    @staticmethod
+    def backward(ctx, dc_out, dn_out, dm_out, dh):
+        gates, c, n, m = ctx.saved_tensors
+        (c_new, n_new, _, _), (i_raw, f_raw, a, i_st, f_st, z, o) = \
+            _slstm_cell_parts(gates, c, n, m)
+        den = torch.clamp_min(n_new, 1.0)
+        q = o * c_new
+        dq = dh / den
+        dc_new = dc_out + dq * o
+        dn_new = dn_out + torch.where(n_new >= 1.0, -dh * q / (den * den),
+                                      0.0)
+        di_st = dc_new * z + dn_new
+        df_st = dc_new * c + dn_new * n
+        di_exp = di_st * i_st
+        da_exp = df_st * f_st
+        dm_new = dm_out - di_exp - da_exp
+        split = torch.where(a == i_raw, dm_new / 2, dm_new)
+        da = da_exp + split.masked_fill(a < i_raw, 0.0)
+        di = di_exp + split.masked_fill(a > i_raw, 0.0)
+        dgates = torch.stack([di, da * torch.sigmoid(-f_raw),
+                              dc_new * i_st * (1 - z * z),
+                              dq * c_new * (1 - o) * o], 1)
+        return dgates.to(gates.dtype), dc_new * f_st, dn_new * f_st, da
+
+
+def _slstm_cell(gates: torch.Tensor, state: SLSTMState) -> SLSTMState:
+    """gates: (B, 4, D) raw; state (c, n, m, h) each (B, D) float32."""
+    c, n, m, _ = state
+    return _SLSTMCellStep.apply(gates, c, n, m)
 
 
 def _slstm_gx(p, x: torch.Tensor) -> torch.Tensor:
@@ -284,18 +338,44 @@ def slstm_decode_init(cfg: ArchConfig, batch: int, device=None) -> Dict:
                             device=device), "h": z()}
 
 
-def _walk(gx: torch.Tensor, r_h: torch.Tensor, bias: torch.Tensor, cfg):
-    """The time loop over gx (B, T, 4, D) from the zero state: h (B, T,
-    D) float32 and the final c, n, m, h."""
-    B, T, _, D = gx.shape
-    state = tuple(slstm_decode_init(cfg, B, gx.device)[k]
-                  for k in ("c", "n", "m", "h"))
+SLSTM_TIME_CHUNK = 256
+
+
+def _walk_steps(gx: torch.Tensor, r_h: torch.Tensor, bias: torch.Tensor,
+                c, n, m, h):
+    """The time loop over gx (B, T, 4, D) from the state (c, n, m, h):
+    h (B, T, D) float32 and the final c, n, m, h."""
+    state = (c, n, m, h)
     hs = []
-    for t in range(T):
+    for t in range(gx.shape[1]):
         gates = gx[:, t] + _slstm_gh(r_h, state[3], gx.dtype) + bias
         state = _slstm_cell(gates, state)
         hs.append(state[3])
     return (torch.stack(hs, 1),) + state
+
+
+def _walk(gx: torch.Tensor, r_h: torch.Tensor, bias: torch.Tensor, cfg):
+    """The time loop over gx (B, T, 4, D) from the zero state: h (B, T,
+    D) float32 and the final c, n, m, h.  Under grad each
+    ``SLSTM_TIME_CHUNK``-step chunk is checkpointed (non-reentrant, so
+    it nests inside a checkpointed superblock) and recomputed in the
+    backward, as the reference's ``jax.checkpoint`` over its chunked
+    scan (``repro/models/xlstm.py:259-283``); the recompute is bound to
+    the sharding context, which autograd's device thread does not
+    inherit."""
+    B, T, _, D = gx.shape
+    state = tuple(slstm_decode_init(cfg, B, gx.device)[k]
+                  for k in ("c", "n", "m", "h"))
+    if not torch.is_grad_enabled():
+        return _walk_steps(gx, r_h, bias, *state)
+    chunk = SLSTM_TIME_CHUNK if T % SLSTM_TIME_CHUNK == 0 else T
+    steps = bind_ctx(_walk_steps)
+    hs = []
+    for s in range(0, T, chunk):
+        h, *state = checkpoint(steps, gx[:, s:s + chunk], r_h, bias, *state,
+                               use_reentrant=False, preserve_rng_state=False)
+        hs.append(h)
+    return (torch.cat(hs, 1),) + tuple(state)
 
 
 def _slstm_walk(p, x: torch.Tensor, cfg: ArchConfig

@@ -243,6 +243,179 @@ def test_slstm_decode_init_matches_jax():
         assert np.array_equal(got[key].numpy(), np.asarray(want[key]))
 
 
+# The sLSTM's memory plan: under grad the walk is checkpointed in
+# SLSTM_TIME_CHUNK-step chunks, as the reference's (T 512: two chunks;
+# T 300, not a multiple of 256: one chunk of the whole T).
+
+def _whole_walk(gx, r_h, bias, cfg):
+    """The walk without the remat: one loop over all T, every step's
+    autograd state kept."""
+    state = port_xlstm.slstm_decode_init(cfg, gx.shape[0], gx.device)
+    return port_xlstm._walk_steps(gx, r_h, bias,
+                                  *(state[k] for k in ("c", "n", "m", "h")))
+
+
+def _ops_walk(gx, r_h, bias, cfg):
+    """The walk as the cell's ops composed, with no autograd node of its
+    own and no remat: the loop the prefill ran before the memory plan."""
+    st = port_xlstm.slstm_decode_init(cfg, gx.shape[0], gx.device)
+    c, n, m, h = (st[k] for k in ("c", "n", "m", "h"))
+    hs = []
+    for t in range(gx.shape[1]):
+        gates = gx[:, t] + port_xlstm._slstm_gh(r_h, h, gx.dtype) + bias
+        c, n, m, h = port_xlstm._slstm_cell_parts(gates, c, n, m)[0]
+        hs.append(h)
+    return torch.stack(hs, 1), c, n, m, h
+
+
+def _slstm_loss_and_grads(p_np, x, cot, cfg, walk=None):
+    """``apply_slstm``'s loss ``sum(out * cot)`` and the gradients of
+    every parameter and of x, float32 on the CPU; ``walk`` replaces the
+    package's ``_walk`` for the call.  Also the calls the walk made to
+    ``checkpoint`` and to ``_walk_steps``."""
+    p = {k: torch.tensor(v, requires_grad=True) for k, v in p_np.items()}
+    tx = torch.tensor(x, requires_grad=True)
+    calls = {"checkpoint": 0, "steps": 0}
+    orig = (port_xlstm._walk, port_xlstm.checkpoint, port_xlstm._walk_steps)
+
+    def counted_checkpoint(*a, **kw):
+        calls["checkpoint"] += 1
+        return orig[1](*a, **kw)
+
+    def counted_steps(*a, **kw):
+        calls["steps"] += 1
+        return orig[2](*a, **kw)
+
+    port_xlstm._walk = walk or orig[0]
+    port_xlstm.checkpoint = counted_checkpoint
+    port_xlstm._walk_steps = counted_steps
+    try:
+        loss = (port_xlstm.apply_slstm(p, tx, cfg)
+                * torch.from_numpy(cot)).sum()
+        loss.backward()
+    finally:
+        port_xlstm._walk, port_xlstm.checkpoint, port_xlstm._walk_steps = orig
+    grads = {k: v.grad for k, v in p.items()}
+    grads["x"] = tx.grad
+    return loss, grads, calls
+
+
+def _slstm_case(T, seed=5):
+    ref_cfg, cfg = _configs()
+    rng = np.random.default_rng(seed)
+    tree = numpy_params(port_xlstm.slstm_specs(cfg), seed)
+    tree["bias"] = rng.standard_normal((4, cfg.d_model)).astype(np.float32)
+    x = rng.standard_normal((2, T, cfg.d_model)).astype(np.float32)
+    cot = rng.standard_normal((2, T, cfg.d_model)).astype(np.float32)
+    return ref_cfg, cfg, tree, x, cot
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_slstm_cell_step_function_matches_autograd(dtype):
+    """The cell (one autograd node, the chain rule by hand, reached as
+    ``_slstm_cell``): the same outputs as its ops composed
+    (``_slstm_cell_parts``, ``==``) and the gradients of autograd
+    through those ops, at ties of ``maximum`` and on both sides of
+    ``clamp_min``'s edge."""
+    rng = np.random.default_rng(7)
+    B, D = 3, 64
+    gates = (2 * rng.standard_normal((B, 4, D))).astype(np.float32)
+    c, n, m = (rng.standard_normal((B, D)).astype(np.float32),
+               np.abs(rng.standard_normal((B, D))).astype(np.float32),
+               rng.standard_normal((B, D)).astype(np.float32))
+    n[0] *= 0.05                       # n_new below 1 in part of row 0
+    dt = getattr(torch, dtype)
+    g = torch.from_numpy(gates).to(dt)
+    a = (torch.nn.functional.logsigmoid(g.float()[:, 1])
+         + torch.from_numpy(m))
+    g[1, 0, :8] = a[1, :8].to(dt)       # i_raw where it may tie a
+    if dtype == "float32":
+        assert (g[:, 0] == a).any()
+    cots = [torch.from_numpy(rng.standard_normal((B, D)).astype(np.float32))
+            for _ in range(4)]
+
+    def run(fn):
+        ins = [g.clone().requires_grad_()] + [
+            torch.from_numpy(v).clone().requires_grad_() for v in (c, n, m)]
+        outs = fn(*ins)
+        sum((o * w).sum() for o, w in zip(outs, cots)).backward()
+        return outs, [t.grad for t in ins]
+
+    got_out, got = run(lambda gg, cc, nn, mm: port_xlstm._slstm_cell(
+        gg, (cc, nn, mm, None)))
+    want_out, want = run(lambda gg, cc, nn, mm:
+                         port_xlstm._slstm_cell_parts(gg, cc, nn, mm)[0])
+    for go, wo in zip(got_out, want_out):
+        assert torch.equal(go, wo)
+    assert got[0].dtype == dt
+    for gg, ww in zip(got, want):
+        torch.testing.assert_close(gg, ww, atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,chunks", [(512, 2), (300, 1)])
+def test_slstm_remat_chunks_and_grads_equal_the_whole_walk(T, chunks):
+    """Loss and every gradient leaf with the chunked remat ``==`` the
+    walk over all T without it; the plan checkpoints ``chunks`` chunks
+    and recomputes each once in the backward."""
+    _, cfg, tree, x, cot = _slstm_case(T)
+    loss, grads, calls = _slstm_loss_and_grads(tree, x, cot, cfg)
+    assert calls == {"checkpoint": chunks, "steps": 2 * chunks}
+    want_loss, want, plain_calls = _slstm_loss_and_grads(
+        tree, x, cot, cfg, walk=_whole_walk)
+    assert plain_calls == {"checkpoint": 0, "steps": 1}
+    assert loss.item() == want_loss.item()
+    assert sorted(grads) == sorted(want) == ["bias", "r_h", "w_out",
+                                             "w_x", "x"]
+    for k in grads:
+        assert torch.equal(grads[k], want[k]), k
+
+
+def test_slstm_remat_grads_match_jax_grad():
+    """At T 512 both walks' gradients within ``CELL_TOL`` of
+    ``jax.grad`` through the reference's ``apply_slstm``, whose chunked
+    branch (two ``jax.checkpoint`` chunks of 256) T 512 takes."""
+    ref_cfg, cfg, tree, x, cot = _slstm_case(512)
+    assert ref_xlstm.SLSTM_TIME_CHUNK == port_xlstm.SLSTM_TIME_CHUNK == 256
+
+    def ref_loss(p, xx):
+        return jnp.sum(ref_xlstm.apply_slstm(p, xx, ref_cfg)
+                       * jnp.asarray(cot))
+
+    jtree = {k: jnp.asarray(v) for k, v in tree.items()}
+    want_loss, (gp, gx) = jax.value_and_grad(ref_loss, argnums=(0, 1))(
+        jtree, jnp.asarray(x))
+    want = dict(gp, x=gx)
+    for walk in (None, _whole_walk):
+        loss, grads, _ = _slstm_loss_and_grads(tree, x, cot, cfg, walk=walk)
+        np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-4)
+        for k in want:
+            _close(grads[k], want[k], CELL_TOL)
+
+
+def test_slstm_prefill_under_no_grad_is_the_plain_walk():
+    """Serving's prefill runs under ``no_grad``: no checkpoint, and the
+    output and state ``==`` the cell's ops composed over the whole T (the
+    prefill before the memory plan)."""
+    _, cfg, tree, x, _ = _slstm_case(512)
+    p = _port_params(tree, cfg, torch.float32)
+    tx = torch.from_numpy(x)
+    seen = []
+    orig = port_xlstm.checkpoint
+    port_xlstm.checkpoint = lambda *a, **kw: seen.append(1) or orig(*a, **kw)
+    try:
+        with torch.no_grad():
+            out, st = port_xlstm.slstm_prefill(p, tx, cfg)
+            gx = port_xlstm._slstm_gx(p, tx)
+            h, *want_st = _ops_walk(gx, p["r_h"], p["bias"], cfg)
+            want = port_xlstm._slstm_out(p, h, tx.dtype)
+    finally:
+        port_xlstm.checkpoint = orig
+    assert not seen
+    assert torch.equal(out, want)
+    for key, w in zip(("c", "n", "m", "h"), want_st):
+        assert torch.equal(st[key], w)
+
+
 # --------------------------------------------------------------------------- #
 # mLSTM decode
 # --------------------------------------------------------------------------- #
