@@ -14,13 +14,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    card at the lane path's shape and at edge shapes (``torch.equal``),
    and its device time over many launches beside its bound, the plain
    version's time and a library yardstick;
-4. golden  — the lane-program kernel (one launch a batch) and the
-   lockstep program with the select kernel, on the card, over every
+4. golden  — the lane-program kernel (one launch a batch) over every
    batch of ``tests/data/torch_lane_golden.npz`` (outputs of the JAX
-   reference), bit for bit, after rebuilding the fixture's input columns
-   with the port's own generators;
+   reference) and the lockstep program with the select kernel over 8 of
+   each batch's 16 lanes (``GOLDEN_LOCKSTEP_LANES``), on the card, bit
+   for bit, after rebuilding the fixture's input columns with the port's
+   own generators;
 5. main    — ``run_cells(cells, workers="lanes")`` on 2048 heavy-tail
-   cells (family default 2000 jobs, 64 m2.small nodes, best-fit,
+   cells (1000 jobs each, ``MAIN_JOBS``, 64 m2.small nodes, best-fit,
    void/void) through the lane-program kernel: lanes/s, the stage split
    of the wall (``evaluator.stage_s``), kernel launches, host syncs, peak
    device memory; the kernel alone on the same batch (CUDA events), its
@@ -78,7 +79,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    float32 kernel, the plain version and
    ``scaled_dot_product_attention`` with the same mask as a yardstick,
    each with its TFLOP/s and share of the bound; the kernel's registers
-   and spills from the ptxas log;
+   and spills from the ptxas log; then the soft-capped kernels
+   (``softcap=2`` on logits ~N(0, 16)) against the plain version with the
+   cap at the serving, Command-R, DeepSeekMoE, Whisper and training
+   shapes in bf16 and one float32 shape per head dim (each bf16 case also
+   at the tolerance scaled to each query row's rms), each also at least
+   10 x its tolerance from the uncapped plain version, the capped and
+   uncapped kernels' times at the serving shape and Whisper's encoder
+   shape beside the capped bound (tensor cores, special-function unit,
+   bytes) and compiled FlexAttention with the cap as its ``score_mod``
+   as the yardstick, and a gate that no capped instantiation spills more
+   than its uncapped one;
 10. rglru  — the RG-LRU scan kernels against their plain version on
    edge shapes of both (the chunked kernel up to 24 MB of input, the ring
    kernel above), at the serving shape (B 1, T 3072, R 4096, float32
@@ -104,7 +115,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    logits for a request past the window;
 13. grad   — one backward through each of flash attention, the RG-LRU
    scan and the mLSTM cell at each of its main paths' shapes (serving and
-   training; the forecaster's inference and training, xLSTM's prefill):
+   training; the forecaster's inference and training, xLSTM's prefill;
+   flash with a soft cap at the live MoE job's shape):
    the wrapper launches its kernel once through its
    ``autograd.Function``, and the gradients for a seeded cotangent match
    autograd through the plain version at the forward's tolerance;
@@ -141,16 +153,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on the card through the mLSTM block kernel at dk 384 (float32 calls
    never take the parallel kernel) reproduces them
    (``repro_torch.serve.golden.replay``);
-18. xlstm serve main — full-width xLSTM-125M (12 layers, 184.2 M
-   parameters drawn on the card in bfloat16 from a seeded CUDA
-   generator) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
-   greedy, 16 requests at t = 0 with prompts of 64 × [4, 48] tokens and
-   64 new tokens each, through ``run_server``: tokens/s, mean TTFT,
-   prefill ms by prompt length, decode step ms, peak device memory, the
-   mLSTM kernels' launches (the run fails unless every prefill call took
-   the parallel kernel), profiled windows of decode steps and of one
-   prefill, one sLSTM layer's prefill walk, and decode logits against
-   teacher-forced ``forward_train`` logits for the longest prompt;
+18. xlstm serve main — xLSTM-125M at its published widths cut to 4 of its
+   12 layers (3 mLSTM + 1 sLSTM, ``SERVE_CUT_LAYERS``; parameters drawn on
+   the card in bfloat16 from a seeded CUDA generator) behind
+   ``ServeEngine(num_slots=8, cache_len=4096)``, greedy, 16 requests at t
+   = 0 with prompts of 64 × [4, 48] tokens and 64 new tokens each, through
+   ``run_server``: tokens/s, mean TTFT, prefill ms by prompt length,
+   decode step ms, peak device memory, the mLSTM kernels' launches (the
+   run fails unless every prefill call took the parallel kernel), profiled
+   windows of decode steps and of one prefill, one sLSTM layer's prefill
+   walk, and decode logits against teacher-forced ``forward_train`` logits
+   for the longest prompt;
 19. moe golden — the fixture ``tests/data/torch_moe_serve_golden`` (a
    float32 DeepSeekMoE-16B twin at full width cut to 3 layers, 1 dense +
    2 MoE, parameters redrawn from the fixture's seed and checked by
@@ -159,18 +172,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    its greedy engine tokens): the port on the card reproduces them
    (``repro_torch.serve.golden.replay``), the experts ``==`` (read by
    wrapping ``moe.route``, ``golden.routing_report``);
-20. moe serve main — full-width DeepSeekMoE-16B (28 layers, 16.38 G
-   parameters drawn on the card in bfloat16 from a seeded CUDA
-   generator) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
-   greedy, 16 requests at t = 0 of 64 new tokens with prompts drawn from
-   {128, ..., 512, 1024, ..., 3072} (the reference's MoE takes at most
-   one group of 512 or whole groups): tokens/s, mean TTFT, prefill ms
-   (the run's, and timed at 512, 1024, 2048 and 3072 tokens), decode
-   step ms, peak device memory with weights and KV cache apart, flash
-   launches (28 a prefill), profiled windows of decode steps and of one
-   prefill, and decode logits against teacher forcing on a 3072-token
-   prompt at capacity factor 8 (nothing dropped, as the reference's
-   consistency test);
+20. moe serve main — DeepSeekMoE-16B at its published widths cut to 7 of
+   its 28 layers (the dense first layer and 6 MoE layers,
+   ``SERVE_CUT_LAYERS``; parameters drawn on the card in bfloat16 from a
+   seeded CUDA generator) behind ``ServeEngine(num_slots=8,
+   cache_len=4096)``, greedy, 16 requests at t = 0 of 64 new tokens with
+   prompts drawn from {128, ..., 512, 1024, ..., 3072} (the reference's
+   MoE takes at most one group of 512 or whole groups): tokens/s, mean
+   TTFT, prefill ms (the run's, and timed at 512, 1024, 2048 and 3072
+   tokens), decode step ms, peak device memory with weights and KV cache
+   apart, flash launches (one a layer a prefill), profiled windows of
+   decode steps and of one prefill, and decode logits against teacher
+   forcing on a 3072-token prompt at capacity factor 8 (nothing dropped,
+   as the reference's consistency test);
 21. granite — full-width Granite-3.0-1B-A400M (GQA 16/8, top-8 of 32,
    tied embeddings): prefill + 8 decode steps against teacher forcing
    at capacity factor 8, and one short ``run_server``;
@@ -181,17 +195,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
    engine tokens): the port on the card reproduces them
    (``repro_torch.serve.golden.replay``), flash launched in every
    prefill;
-23. command-r serve main — Command-R-35B at its published widths and
-   full depth (40 parallel blocks, 30.28 G parameters drawn on the card
-   in bfloat16 from a seeded CUDA generator, a leaf above 2^30 values in
-   pieces) behind ``ServeEngine(num_slots=8, cache_len=4096)``, greedy,
-   phase 12's burst (16 requests at t = 0, prompts of 256–3072 tokens, 64
-   new tokens each): what phase 20 reports (tokens/s, mean TTFT, prefill
-   ms in the run and timed at 512–3072 tokens, decode step ms, weight
-   and KV-cache bytes, the serving peak and the peak while drawing, which
-   must stay below the card's memory, profiled decode and prefill
-   windows, 40 flash launches a prefill) and decode against teacher
-   forcing on a 3072-token prompt;
+23. command-r serve main — Command-R-35B at its published widths cut to 10
+   of its 40 parallel blocks (``SERVE_CUT_LAYERS``; parameters drawn on
+   the card in bfloat16 from a seeded CUDA generator, a leaf above 2^30
+   values in pieces) behind ``ServeEngine(num_slots=8, cache_len=4096)``,
+   greedy, phase 12's burst (16 requests at t = 0, prompts of 256–3072
+   tokens, 64 new tokens each): what phase 20 reports (tokens/s, mean
+   TTFT, prefill ms in the run and timed at 512–3072 tokens, decode step
+   ms, weight and KV-cache bytes, the serving peak and the peak while
+   drawing, which must stay below the card's memory, profiled decode and
+   prefill windows, one flash launch a layer a prefill) and decode against
+   teacher forcing on a 3072-token prompt;
 24. qwen check — Qwen1.5-32B at full width (40 heads of 128 padded to
    48 in prefill, QKV bias) cut to 8 of its 64 layers: on float32
    activations over the same weights, decode from an unquantised cache
@@ -223,13 +237,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    float32 InternVL2-26B twin at full width cut to 2 layers and 256
    patches): the port on the card reproduces it, flash launched once a
    layer a prefill;
-28. internvl serve main — InternVL2-26B at its published widths and full
-   depth (48 layers, GQA 48/8, ≈ 39.7 GB of bf16 weights drawn on the
-   card) behind ``ServeEngine(num_slots=8, cache_len=4096)`` with one
-   set of 1024 patches for every request, 16 requests at t = 0 of
-   16–2000 tokens after the patches and 64 new tokens each: what phase
-   23 reports, 48 flash launches a prefill, and decode against teacher
-   forcing over 3072 positions (the patches and 2048 tokens);
+28. internvl serve main — InternVL2-26B at its published widths cut to 12
+   of its 48 layers (GQA 48/8, ``SERVE_CUT_LAYERS``; bf16 weights drawn on
+   the card) behind ``ServeEngine(num_slots=8, cache_len=4096)`` with one
+   set of 1024 patches for every request, 16 requests at t = 0 of 16–2000
+   tokens after the patches and 64 new tokens each: what phase 23 reports,
+   one flash launch a layer a prefill, and decode against teacher forcing
+   over 3072 positions (the patches and 2048 tokens);
 29. distributed — ``init_distributed()`` (NCCL, a world of 1, a file
    store), ``local_mesh()`` and a (1, 1) ``("data", "model")`` mesh;
    DeepSeek-7B at its published widths cut to 2 layers (float32 masters
@@ -254,9 +268,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    within 10 % and count as many flash calls as were launched (its
    FLOPs over the step's time are printed as model TFLOP/s, with no
    gate); DeepSeek-7B x train_4k and x decode_32k on a fake world of 256
-   and x train_4k on one of 512, each in a process of its own (the
-   512-rank one started before phase 29), must return ``ok`` with every
-   key, each per-card peak printed beside the card's memory;
+   and x train_4k on one of 512, each in a process of its own (all four
+   dry runs started before phase 14), must return ``ok`` with every key,
+   each per-card peak printed beside the card's memory;
 31. orchestrate — the paper's orchestrator (``repro_torch.core``, the
    serial simulator on the card's host): the two golden event logs
    (``tests/data/golden_trace*.json``) replayed on both engines, ``==``;
@@ -293,25 +307,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
    fixture's last calls, the
    bundle through ``save_bundle`` / ``load_bundle`` in JSON and NPZ,
    ``render_report``; its wall beside phase 31's and its events by kind;
-33. live — the paper's orchestrator scheduling real training jobs on
-   the card (``repro_torch.cloud.local_provider``): job A, xLSTM-125M at
-   its published widths and depth (184,237,896 parameters), and job B,
-   DeepSeekMoE-16B's widths cut to 2 of 28 layers (a dense layer and one
-   MoE layer of 64 routed + 2 shared experts), 4 steps of 4 × 512
+33. live — the paper's orchestrator scheduling real training jobs on the
+   card (``repro_torch.cloud.local_provider``): job A, xLSTM-125M at its
+   published widths cut to 4 of its 12 layers (3 mLSTM + 1 sLSTM), and job
+   B, DeepSeekMoE-16B's widths cut to 2 of 28 layers (a dense layer and
+   one MoE layer of 64 routed + 2 shared experts), 4 steps of 4 × 512
    tokens each (phases 6 and 9 hold both kernels against their plain
-   versions at these jobs' shapes); first each alone (step ms, tokens/s, model FLOP/s by
-   active parameters, peak memory, launches a step: 18 of the parallel
-   mLSTM kernel for A, 4 of flash for B; A's last step calls the sLSTM
-   walk without its 256-step remat: the peak of a step with and without
-   it, and of one walk alone both ways); then both as batch pods bound by best fit to one static node
-   of ``LocalCloudProvider`` and trained at once in their threads, job A
-   evicted once its trainer has finished step 2, checkpointed, rebound
-   and resumed: both pods ``SUCCEEDED``, each job's losses ``==`` its
-   solo run's, the node billed, the launches as
-   predicted, no exception in a job thread; the live wall against the
-   solo walls, A's checkpoint save and restore seconds, the cycles; last
-   ``repro_torch.launch.orchestrate --compare --workload mixed`` in
-   process, its rows ``==`` phase 31's fixture rows.
+   versions at these jobs' shapes); first each alone (step ms, tokens/s,
+   model FLOP/s by active parameters, peak memory, launches a step: 6 of
+   the parallel mLSTM kernel for A, 4 of flash for B; A's last step calls
+   the sLSTM walk without its 256-step remat: the peak of a step with and
+   without it, and of one walk alone both ways); then both as batch pods
+   bound by best fit to one static node of ``LocalCloudProvider`` and
+   trained at once in their threads, job A evicted once its trainer has
+   finished step 2, checkpointed, rebound and resumed: both pods
+   ``SUCCEEDED``, each job's losses ``==`` its solo run's, the node
+   billed, the launches as predicted, no exception in a job thread; the
+   live wall against the solo walls, A's checkpoint save and restore
+   seconds, the cycles; last ``repro_torch.launch.orchestrate --compare
+   --workload mixed`` in process, its rows ``==`` phase 31's fixture rows;
+34. softcap golden — the fixture ``tests/data/torch_softcap_serve_golden``
+   (phase 25's float32 Whisper twin with its attention logits
+   soft-capped at ``golden.SOFTCAP_CAP``): the port on the card
+   reproduces JAX's logits and greedy engine tokens, flash launched 6
+   times a prefill;
+35. softcap serve main — Whisper-medium at its published widths and full
+   depth with the same cap, bf16 weights from seed 0, behind
+   ``ServeEngine(num_slots=8, cache_len=448)``: 4 requests of 4–384
+   tokens and 64 new tokens each through ``run_server`` (72 capped flash
+   launches a prefill), decode against teacher forcing on a 384-token
+   prompt, and one 64-token prefill with and without the cap on the same
+   weights, whose logits must differ.  A run check: random weights leave
+   attention near uniform, so the cap moves the logits by about one bf16
+   step, inside both gates; phase 34 is what holds the cap.
 
 It then prints the kernels line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits
@@ -319,6 +347,8 @@ non-zero before printing any result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import atexit
+import dataclasses
 import hashlib
 import json
 import os
@@ -332,6 +362,10 @@ sys.path.insert(0, str(ROOT / "src"))
 
 MAIN_LANES = 2048
 MAIN_NODES = 64
+# Jobs a lane: the heavy-tail trace cut from its 2,000 to keep the
+# lockstep runs of phase 4 short (about 8,300 host syncs for 16 lanes at
+# 1,000 jobs, 32,400 at 2,000).
+MAIN_JOBS = 1000
 GOLDEN = ROOT / "tests" / "data" / "torch_lane_golden.npz"
 FORECASTER = ROOT / "tests" / "data" / "torch_forecaster_golden"
 FORECAST_FAMILIES = ("diurnal", "flash-crowd", "heavy-tail", "mix-ramp",
@@ -350,13 +384,26 @@ MLSTM_TOL = {"float32": dict(atol=2e-4, rtol=2e-3),
 FORECAST_TOL = dict(atol=2e-5, rtol=2e-5)
 
 
+_STARTED = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """Print one JSON line; a phase's line also carries ``t_s``, the
+    seconds since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _STARTED}
     print(json.dumps(obj), flush=True)
 
 
 def _run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip()
+
+
+def _smi_clocks() -> str:
+    """The card's SM clock, power draw, power limit and temperature."""
+    return _run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
+                 "temperature.gpu", "--format=csv,noheader"])
 
 
 def phase_device(torch) -> dict:
@@ -576,6 +623,12 @@ def phase_kernel(torch, np, dev) -> dict:
     return line
 
 
+# The fixture's lanes whose lockstep run stays short on the card (about
+# 3,400 host syncs a scheduler for the eight, against 11,300-12,800 for
+# all sixteen, at about 1.2 ms a sync); the lane-program kernel runs all.
+GOLDEN_LOCKSTEP_LANES = (0, 4, 5, 10, 12, 13, 14, 15)
+
+
 def phase_golden(torch, np, dev) -> None:
     from repro_torch.manyworld import lane_kernel, lanes
     from repro_torch.scenarios import build_scenario
@@ -606,19 +659,40 @@ def phase_golden(torch, np, dev) -> None:
                                  "differs from the fixture")
         want_keys = {k.split("/", 2)[2] for k in fx
                      if k.startswith(f"{sched}/out/")}
-        entry = report[sched] = {"lanes": int(inputs["valid"].shape[0])}
-        # The lane-program kernel (run_lane_batch on the card), then the
-        # lockstep program with the select kernel.
-        for name, run in (("kernel", lanes.run_lane_batch),
-                          ("lockstep", lanes.run_lane_batch_lockstep)):
+        entry = report[sched] = {"lanes": int(inputs["valid"].shape[0]),
+                                 "lockstep_lanes": list(GOLDEN_LOCKSTEP_LANES)}
+        sub = list(GOLDEN_LOCKSTEP_LANES)
+
+        class Rows:
+            scheduler = sched
+        for name in lanes.BATCH_FIELDS:
+            setattr(Rows, name, inputs[name][sub])
+        # The lane-program kernel (run_lane_batch on the card) on every
+        # lane, then the lockstep program with the select kernel on the
+        # sub-batch (lanes are independent: each keeps its outputs).
+        for name, run, batch, rows in (
+                ("kernel", lanes.run_lane_batch, rebuilt, None),
+                ("lockstep", lanes.run_lane_batch_lockstep,
+                 lanes.lane_batch_from_numpy(Rows, device=dev), sub)):
             lane_kernel.launches = 0
             lanes.host_syncs = 0
             t0 = time.perf_counter()
-            out = run(rebuilt, device=dev)
+            out = run(batch, device=dev)
             wall = time.perf_counter() - t0
-            bad = [key for key, val in out.items()
-                   if val.dtype != fx[f"{sched}/out/{key}"].dtype
-                   or not np.array_equal(val, fx[f"{sched}/out/{key}"])]
+            bad = []
+            for key, val in out.items():
+                want = fx[f"{sched}/out/{key}"]
+                if rows is not None and key == "n_cycles":
+                    continue                 # the sub-batch's own count
+                if rows is not None:
+                    want = want[rows]
+                if key in ("used_cpu", "used_mem", "pcount"):
+                    # a sub-batch pads fewer nodes: the rest must be 0
+                    if want[:, val.shape[1]:].any():
+                        bad.append(key)
+                    want = want[:, :val.shape[1]]
+                if val.dtype != want.dtype or not np.array_equal(val, want):
+                    bad.append(key)
             if set(out) != want_keys:
                 bad.append("keys")
             entry[name] = {"n_cycles": int(out["n_cycles"]),
@@ -717,7 +791,8 @@ def phase_main(torch, np, dev) -> dict:
     from repro_torch.search.runner import CellSpec, _get_trace, run_cells
     cells = [CellSpec(scenario="heavy-tail", scheduler="best-fit",
                       autoscaler="void", rescheduler="void", seed=seed,
-                      engine="array", initial_workers=MAIN_NODES)
+                      n_jobs=MAIN_JOBS, engine="array",
+                      initial_workers=MAIN_NODES)
              for seed in range(MAIN_LANES)]
     t0 = time.perf_counter()
     traces = [_get_trace(c.scenario, c.seed, c.n_jobs) for c in cells]
@@ -741,7 +816,8 @@ def phase_main(torch, np, dev) -> dict:
         raise SystemExit("main path ran without launching lane_program")
     bad = [r["label"] for r in rows
            if not (isinstance(r["cost"], float) and np.isfinite(r["cost"])
-                   and r["n_jobs"] == 2000 and r["max_nodes"] == MAIN_NODES
+                   and r["n_jobs"] == MAIN_JOBS
+                   and r["max_nodes"] == MAIN_NODES
                    and 0.0 <= r["avg_ram_ratio"] <= 1.0)]
     if len(rows) != MAIN_LANES or bad:
         raise SystemExit(f"main path rows malformed: {bad[:5]}")
@@ -1566,6 +1642,24 @@ FLASH_TIMED_T = (3072, 1674)
 # oracle: float32 sums in another order, bfloat16 outputs rounded.
 FLASH_TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
              "bfloat16": dict(atol=2e-2, rtol=2e-2)}
+# Soft-capped flash: the cap, and the scale of q that puts the logits
+# (~N(0, 16)) where a cap of 2 bends them, so that each capped case is at
+# least 10 x its tolerance away from the uncapped plain version.  The
+# cases: RecurrentGemma's serving shape, Command-R's, DeepSeekMoE's,
+# Whisper's four and the training shape in bf16, then one float32 case
+# per head dim (256, 128, 64).
+FLASH_SOFTCAP = 2.0
+FLASH_SOFTCAP_Q_SCALE = 4.0
+FLASH_SOFTCAP_CASES = (
+    FLASH_CASES[0], FLASH_COMMAND_R_CASE, FLASH_MOE_CASE,
+    *FLASH_WHISPER_CASES.values(), FLASH_TRAIN_CASE,
+    (1, 6, 1, 384, 384, 256, True, 0, "float32"),
+    (2, 8, 2, 256, 256, 128, True, 0, "float32"),
+    (1, 16, 16, 384, 1500, 64, False, 0, "float32"),
+)
+# Special-function (MUFU: ex2, tanh, rcp) operations a second on an H100
+# SXM (FlashAttention-3, arXiv:2407.08608).
+SFU_OPS_PER_S = 3.9e12
 
 
 def _flash_inputs(torch, np, case, dev):
@@ -1577,14 +1671,19 @@ def _flash_inputs(torch, np, case, dev):
 
 
 def _ptxas_by_kernel(log: str) -> dict:
-    """{"<dtype>/hd<HD>": {registers, spill_stores, spill_loads}} of the
-    flash kernel's instantiations, from its ``nvcc -Xptxas -v`` log."""
+    """{"<dtype>/hd<HD>[/softcap]": {registers, spill_stores,
+    spill_loads}} of the flash kernel's instantiations, from its ``nvcc
+    -Xptxas -v`` log (a source from before the cap has no ``/softcap``
+    instantiations, and its names read the same)."""
     import re
     out, name = {}, None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            hit = re.search(r"flash_attention_(bf16|f32)ILi(\d+)", ln)
-            name = f"{hit.group(1)}/hd{hit.group(2)}" if hit else None
+            hit = re.search(r"flash_attention_(bf16|f32)(_softcap)?ILi(\d+)E"
+                            r"(Lb([01])E)?", ln)
+            name = (f"{hit.group(1)}/hd{hit.group(3)}"
+                    + ("/softcap" if hit.group(2) or hit.group(5) == "1"
+                       else "") if hit else None)
             if name:
                 out[name] = {}
         elif name and "spill stores" in ln:
@@ -1682,6 +1781,166 @@ def _flash_model_shape(torch, np, flash, dev, case, results) -> dict:
     return line
 
 
+def _capped_inputs(torch, np, case, dev):
+    q, k, v = _flash_inputs(torch, np, case, dev)
+    return q * FLASH_SOFTCAP_Q_SCALE, k, v
+
+
+def _flash_capped_bound(flash, shape, cap) -> tuple:
+    """(ms by resource, bound ms, the resource that binds) of one capped
+    bf16 call at ``shape`` (B, Hq, Hkv, T, S, hd, causal, window): the
+    largest of its tensor-core time (4 hd operations a visible pair), its
+    special-function time (:func:`flash.flash_sfu_ops`) and its bytes
+    time (q, k, v read and o written once)."""
+    B, Hq, Hkv, T, S, hd, causal, window = shape
+    pairs = B * Hq * flash.visible_pairs(T, S, causal, window)
+    times = {"tensor_core": pairs * 4 * hd / BF16_OPS_PER_S * 1e3,
+             "special_function": flash.flash_sfu_ops(
+                 B, Hq, T, S, causal, window, cap) / SFU_OPS_PER_S * 1e3,
+             "bytes": 2 * (2 * B * Hq * T * hd + 2 * B * Hkv * S * hd)
+             / HBM_BYTES_PER_S * 1e3}
+    bound_by = max(times, key=times.get)
+    return times, times[bound_by], bound_by
+
+
+def _flex_mods(torch, causal, window, cap):
+    """FlexAttention's ``score_mod`` (the cap, on the scaled logit) and
+    ``mask_mod`` (None without a mask) for the flash kernel's function."""
+    def score_mod(score, b, h, i, j):
+        return torch.tanh(score / cap) * cap
+
+    def mask_mod(b, h, i, j):
+        visible = j <= i if causal else j >= 0
+        return visible & (j > i - window) if window > 0 else visible
+    return score_mod, (mask_mod if causal or window > 0 else None)
+
+
+def _flex_capped(torch, case, cap, dev):
+    """The yardstick of a capped call: one library call that computes the
+    same function, ``torch.compile``d FlexAttention with the cap as its
+    ``score_mod`` and the mask as its block mask.  Timed only here; the
+    port never calls it."""
+    import torch._inductor.config as inductor
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    B, Hq, Hkv, T, S, hd, causal, window, _ = case
+    inductor.compile_threads = 1       # no compile worker processes
+    score_mod, mask_mod = _flex_mods(torch, causal, window, cap)
+    block_mask = None if mask_mod is None else create_block_mask(
+        mask_mod, None, None, T, S, device=dev)
+    compiled = torch.compile(flex_attention, dynamic=False)
+    return lambda q, k, v: compiled(q, k, v, score_mod=score_mod,
+                                    block_mask=block_mask,
+                                    enable_gqa=Hq != Hkv)
+
+
+def _row_scaled_check(out, want, tol) -> tuple:
+    """(within, worst): ``out`` against ``want`` with ``tol``'s atol
+    scaled to the rms of each query row of ``want``.  A capped softmax
+    spreads over many keys, so its rows lie far below unit scale, where
+    an unscaled atol would pass a capped logit off by 10 %."""
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    err = (out - want).abs()
+    within = bool((err <= tol["atol"] * rms + tol["rtol"] * want.abs()).all())
+    return within, float((err / rms).max())
+
+
+def _flash_softcap(torch, np, flash, dev) -> dict:
+    """The capped kernels: each of :data:`FLASH_SOFTCAP_CASES` against
+    the plain version with the cap within ``FLASH_TOL``, and each bf16
+    case also within ``FLASH_TOL`` scaled to its rows
+    (:func:`_row_scaled_check`), where the uncapped plain version must
+    lie at least 10 x the tolerance's atol away; then at the serving
+    shape and Whisper's encoder shape the capped and uncapped kernels'
+    device times and the yardstick's (:func:`_flex_capped`, held to the
+    plain version first), queued behind a device sleep, and the capped
+    plain version's, beside the capped call's bound
+    (:func:`_flash_capped_bound`)."""
+    cases = {}
+    for case in FLASH_SOFTCAP_CASES:
+        causal, window, dtype = case[6:]
+        name = _flash_name(case)
+        q, k, v = _capped_inputs(torch, np, case, dev)
+        kw = dict(causal=causal, window=window)
+        out = flash.flash_attention(q, k, v, softcap=FLASH_SOFTCAP, **kw)
+        torch.cuda.synchronize()
+        want = flash.flash_attention_plain(q, k, v, softcap=FLASH_SOFTCAP,
+                                           **kw).float()
+        bent = float((want - flash.flash_attention_plain(
+            q, k, v, **kw).float()).abs().max())
+        ok = out.dtype == q.dtype and torch.allclose(
+            out.float(), want, **FLASH_TOL[dtype])
+        scaled, worst = _row_scaled_check(out.float(), want,
+                                          FLASH_TOL[dtype])
+        cases[name] = {"match": ok, "max_abs_err": float(
+            (out.float() - want).abs().max()),
+            "max_err_over_row_rms": worst, "bent_by_cap": bent,
+            "bent_share_of_atol": bent / FLASH_TOL[dtype]["atol"]}
+        if dtype == "bfloat16":
+            cases[name]["match_row_scaled"] = scaled
+            ok = ok and scaled
+        del q, k, v, out, want
+        if not ok or bent < 10 * FLASH_TOL[dtype]["atol"]:
+            emit({"phase": "flash_softcap", "cases": cases})
+            raise SystemExit(f"capped flash_attention disagrees with its "
+                             f"plain version on {name}, or the cap does "
+                             "not move the plain version")
+    timed = {}
+    for label, case in (("serve", FLASH_CASES[0]),
+                        ("whisper_encoder", FLASH_WHISPER_CASES["encoder"])):
+        causal, window = case[6:8]
+        q, k, v = _capped_inputs(torch, np, case, dev)
+        ms = {}
+        for key, cap in (("uncapped", 0.0), ("capped", FLASH_SOFTCAP)):
+            ms[key] = _queued_ms(torch, lambda: flash.flash_attention(
+                q, k, v, causal=causal, window=window, softcap=cap),
+                50)["ms"]
+        want = flash.flash_attention_plain(q, k, v, causal=causal,
+                                           window=window,
+                                           softcap=FLASH_SOFTCAP)
+        ms["plain"] = _call_ms(torch, lambda: flash.flash_attention_plain(
+            q, k, v, causal=causal, window=window, softcap=FLASH_SOFTCAP),
+            10, 2)
+        library = {"call": "torch.compile(flex_attention)(q, k, v, "
+                           "score_mod=cap * tanh(score / cap), block_mask="
+                           "the mask, enable_gqa=Hq != Hkv)"}
+        try:
+            t0 = time.perf_counter()
+            flex = _flex_capped(torch, case, FLASH_SOFTCAP, dev)
+            got = flex(q, k, v).float()
+            torch.cuda.synchronize()
+            library["compile_s"] = time.perf_counter() - t0
+            library["max_abs_err"] = float((got - want.float()).abs().max())
+            library["match"] = torch.allclose(got, want.float(),
+                                              **FLASH_TOL["bfloat16"])
+            library["ms"] = _queued_ms(torch, lambda: flex(q, k, v),
+                                       50)["ms"] if library["match"] else None
+            del got
+        except Exception as exc:   # the yardstick's fault, not the port's
+            library.update(error=f"{type(exc).__name__}: {exc}"[:500],
+                           ms=None)
+        times, bound_ms, bound_by = _flash_capped_bound(
+            flash, case[:8], FLASH_SOFTCAP)
+        timed[label] = {"shape": list(case[:6]), "causal": causal,
+                        "window": window, "softcap": FLASH_SOFTCAP,
+                        "capped_ms": ms["capped"],
+                        "uncapped_ms": ms["uncapped"],
+                        "plain_capped_ms": ms["plain"],
+                        "library_ms": library["ms"], "library": library,
+                        "capped_over_uncapped": ms["capped"]
+                        / ms["uncapped"],
+                        "bound_ms_by_resource": times,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "capped_share_of_bound": bound_ms / ms["capped"]}
+        del q, k, v, want
+    return {"softcap": FLASH_SOFTCAP, "q_scale": FLASH_SOFTCAP_Q_SCALE,
+            "cases": cases, "timed": timed,
+            "max_abs_err_bf16": max(r["max_abs_err"] for n, r in
+                                    cases.items() if n.endswith("bfloat16")),
+            "max_abs_err_f32": max(r["max_abs_err"] for n, r in
+                                   cases.items() if n.endswith("float32"))}
+
+
 def phase_flash(torch, np, dev) -> dict:
     from repro_torch import _build
     from repro_torch.kernels import flash_attention as flash
@@ -1718,6 +1977,11 @@ def phase_flash(torch, np, dev) -> dict:
                               ("internvl", FLASH_INTERNVL_CASES))}
     ptxas = _ptxas_by_kernel(
         _build.build_all(["flash_attention"])["flash_attention"]["log"])
+    softcap = _flash_softcap(torch, np, flash, dev)
+    # Trouble spot of the cap at hd 256: the capped instantiation may not
+    # spill more than the uncapped one.
+    more_spills = [n for n in ptxas if n.endswith("/softcap") and ptxas[n][
+        "spill_stores"] > ptxas[n[:-len("/softcap")]]["spill_stores"]]
     serve = by_t[FLASH_TIMED_T[0]]
     line = {"phase": "flash", "cases": results, "tolerance": FLASH_TOL,
             "shape": [B, Hq, Hkv, FLASH_TIMED_T[0], FLASH_TIMED_T[0], hd],
@@ -1738,6 +2002,7 @@ def phase_flash(torch, np, dev) -> dict:
                 FLASH_COMMAND_R_CASE, command_r, results),
             "whisper_shapes": modality["whisper"],
             "internvl_shapes": modality["internvl"],
+            "softcap": softcap, "softcap_spills_more": more_spills,
             # the path's call (the serving shape), then the worst by dtype
             "max_abs_err": next(iter(results.values()))["max_abs_err"],
             "max_abs_err_train": list(results.values())[-1]["max_abs_err"],
@@ -1747,6 +2012,9 @@ def phase_flash(torch, np, dev) -> dict:
                                     results.items()
                                     if n.endswith("bfloat16"))}
     emit(line)
+    if more_spills:
+        raise SystemExit(f"the capped flash kernels {more_spills} spill "
+                         "more than the uncapped ones")
     return line
 
 
@@ -1835,6 +2103,15 @@ SERVE_CACHE = 4096
 # carries the RG-LRU state in float32 where the prefill scan rounds it,
 # over 38 layers.
 SERVE_CONSISTENCY_REL = 0.1
+# Serve cells at their published widths cut in depth to keep the whole
+# script inside its time limit (a quarter of each model's layers in
+# whole superblocks): xLSTM-125M one superblock (3 mLSTM + 1 sLSTM) of
+# 12 layers, DeepSeekMoE-16B the dense first layer and 6 MoE layers of
+# 28, Command-R-35B 10 of 40, InternVL2-26B 12 of 48 (its 1024 patch
+# embeddings as before).  RecurrentGemma-9B (phase 12) and
+# Whisper-medium (phases 26 and 35) run at full depth.
+SERVE_CUT_LAYERS = {"xlstm-125m": 4, "deepseek-moe-16b": 7,
+                    "command-r-35b": 10, "internvl2-26b": 12}
 
 
 def _busy(events, wall_s):
@@ -1954,8 +2231,7 @@ def _serve_windows(torch, eng, params, cfg, prompts, longest, inputs=None):
         eng.admit(serve.Request(uid=100 + i, prompt=prompts[i][:256],
                                 max_new_tokens=SERVE_NEW_TOKENS))
     eng.step()
-    smi = _run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,"
-                "temperature.gpu", "--format=csv,noheader"])
+    smi = _smi_clocks()
     decode_window = _profiled(torch, lambda: [eng.step() for _ in range(8)])
     decode_window["steps"] = 8
     tokens = torch.as_tensor(prompts[longest], dtype=torch.int64,
@@ -2099,7 +2375,8 @@ def phase_xlstm_serve_main(torch, np, dev) -> dict:
     from repro_torch.models import xlstm
     from repro_torch.models.params import count_params, init_params
     from repro_torch.serve import engine as serve
-    cfg = get_config("xlstm-125m")
+    cfg = dataclasses.replace(get_config("xlstm-125m"),
+                              num_layers=SERVE_CUT_LAYERS["xlstm-125m"])
     specs = tf.model_specs(cfg)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
@@ -2291,15 +2568,18 @@ def _timed_prefills(torch, tf, params, cfg, rng, lengths, inputs=None):
 
 
 def phase_moe_serve_main(torch, np, dev) -> dict:
-    """DeepSeekMoE-16B at its published widths and depth behind the
-    engine: 16 requests at t = 0 of 64 new tokens each."""
+    """DeepSeekMoE-16B at its published widths cut to
+    ``SERVE_CUT_LAYERS`` of its 28 layers (the dense first layer and 6
+    MoE layers) behind the engine: 16 requests at t = 0 of 64 new tokens
+    each."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import count_params
     from repro_torch.serve import engine as serve
-    cfg = get_config("deepseek-moe-16b")
+    cfg = dataclasses.replace(get_config("deepseek-moe-16b"),
+                              num_layers=SERVE_CUT_LAYERS["deepseek-moe-16b"])
     allocated = _free(torch)
     params, init_s, weight_bytes, init_peak = _init_model(torch, cfg, dev)
     rng = np.random.default_rng(0)
@@ -2462,13 +2742,15 @@ def _check_init_peak(torch, name, init_peak) -> int:
 
 
 def phase_command_r_serve_main(torch, np, dev) -> dict:
-    """Command-R-35B at its published widths and full depth (40 layers,
-    parallel blocks, GQA 64/8) behind the engine: 16 requests at t = 0 of
-    256-3072 tokens and 64 new tokens each, the RecurrentGemma cell's
-    burst."""
+    """Command-R-35B at its published widths cut to ``SERVE_CUT_LAYERS``
+    of its 40 layers (parallel blocks, GQA 64/8) behind the engine: 16
+    requests at t = 0 of 256-3072 tokens and 64 new tokens each, the
+    RecurrentGemma cell's burst."""
     return _serve_cell(torch, np, dev, "command_r_serve_main",
                        "command-r-35b", (256, 3072), SERVE_CACHE,
-                       COMMAND_R_PREFILL_TIMED, COMMAND_R_TF_PROMPT)
+                       COMMAND_R_PREFILL_TIMED, COMMAND_R_TF_PROMPT,
+                       overrides={"num_layers": SERVE_CUT_LAYERS[
+                           "command-r-35b"]})
 
 
 def _padded_equals_unpadded(torch, np, tf, layers, params, cfg, prompt):
@@ -2779,30 +3061,33 @@ def _flash_per_prefill(cfg) -> int:
 
 
 def _serve_cell(torch, np, dev, phase, arch, prompt_range, cache_len,
-                timed, tf_prompt) -> dict:
+                timed, tf_prompt, overrides=None, n_requests=SERVE_REQUESTS,
+                windows=True, check=None) -> dict:
     """``arch`` at its published widths and full depth (bf16 weights
-    drawn on the card) behind the engine, with the serve CLI's modality
-    input for every request where the arch has one: 16 requests at
-    t = 0 of ``prompt_range`` tokens and 64 new tokens each, flash
-    required :func:`_flash_per_prefill` times a prefill (counted from 0
-    just before ``run_server``); prefill ms timed at ``timed`` prompt
-    lengths; decode against teacher forcing on a ``tf_prompt``-token
-    prompt."""
+    drawn on the card; its config's fields ``overrides`` replaced)
+    behind the engine, with the serve CLI's modality input for every
+    request where the arch has one: ``n_requests`` requests at t = 0 of
+    ``prompt_range`` tokens and 64 new tokens each, flash required
+    :func:`_flash_per_prefill` times a prefill (counted from 0 just
+    before ``run_server``); profiled decode and prefill windows (unless
+    not ``windows``); prefill ms timed at ``timed`` prompt lengths;
+    decode against teacher forcing on a ``tf_prompt``-token prompt; and
+    ``check(params, cfg, inputs, rng)``, a dict whose ``ok`` must hold,
+    where given."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as flash
     from repro_torch.launch.serve import extra_inputs
     from repro_torch.models import transformer as tf
     from repro_torch.models.params import count_params
     from repro_torch.serve import engine as serve
-    cfg = get_config(arch)
+    cfg = dataclasses.replace(get_config(arch), **(overrides or {}))
     allocated = _free(torch)
     params, init_s, weight_bytes, init_peak = _init_model(torch, cfg, dev)
     total = _check_init_peak(torch, phase, init_peak)
     extra = extra_inputs(cfg)
     inputs = {k: torch.as_tensor(v)[None].to(dev) for k, v in extra.items()}
     rng = np.random.default_rng(0)
-    lengths = rng.integers(prompt_range[0], prompt_range[1] + 1,
-                           SERVE_REQUESTS)
+    lengths = rng.integers(prompt_range[0], prompt_range[1] + 1, n_requests)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in lengths]
     reqs = [serve.Request(uid=i, prompt=p, max_new_tokens=SERVE_NEW_TOKENS,
@@ -2821,14 +3106,15 @@ def _serve_cell(torch, np, dev, phase, arch, prompt_range, cache_len,
     launches = {"flash_attention": flash.launches}
     bad = [r.uid for r in reqs if len(r.tokens) != SERVE_NEW_TOKENS
            or not all(0 <= t < cfg.vocab_size for t in r.tokens)]
-    if bad or metrics["requests"] != SERVE_REQUESTS:
+    if bad or metrics["requests"] != n_requests:
         raise SystemExit(f"{phase}: malformed outputs for {bad}")
-    if launches["flash_attention"] != per_prefill * SERVE_REQUESTS:
+    if launches["flash_attention"] != per_prefill * n_requests:
         raise SystemExit(f"{phase}: {launches} flash launches, not "
                          f"{per_prefill} a prefill")
     longest = int(np.argmax(lengths))
     smi, decode_window, prefill_window = _serve_windows(
-        torch, eng, params, cfg, prompts, longest, inputs)
+        torch, eng, params, cfg, prompts, longest, inputs) if windows else (
+        _smi_clocks(), None, None)
     del eng
     _free(torch)
     prefill_timed = _timed_prefills(torch, tf, params, cfg, rng, timed,
@@ -2837,9 +3123,11 @@ def _serve_cell(torch, np, dev, phase, arch, prompt_range, cache_len,
         torch, np, tf, params, cfg,
         rng.integers(0, cfg.vocab_size, tf_prompt).astype(np.int32), rng,
         inputs=inputs)
+    checked = check(params, cfg, inputs, rng) if check else None
     steps = np.asarray(step_ms)
     line = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
             "encoder_layers": cfg.encoder_layers,
+            "overrides": overrides or {},
             "modality_input": {k: list(v.shape) for k, v in extra.items()},
             "params": count_params(tf.model_specs(cfg)),
             "weight_bytes": weight_bytes, "param_init_s": init_s,
@@ -2848,7 +3136,7 @@ def _serve_cell(torch, np, dev, phase, arch, prompt_range, cache_len,
             "allocated_before_bytes": allocated,
             "num_slots": SERVE_SLOTS, "cache_len": cache_len,
             "kv_cache_bytes": kv_bytes,
-            "requests": SERVE_REQUESTS, "new_tokens": SERVE_NEW_TOKENS,
+            "requests": n_requests, "new_tokens": SERVE_NEW_TOKENS,
             "prompt_lens": [int(n) for n in lengths],
             "prompt_tokens": int(lengths.sum()),
             "run_server": metrics, "wall_s": wall,
@@ -2860,17 +3148,19 @@ def _serve_cell(torch, np, dev, phase, arch, prompt_range, cache_len,
             "decode_step_ms_max": float(steps.max()),
             "peak_device_bytes": peak, "launches": launches,
             "flash_launches_per_prefill": launches["flash_attention"]
-            / SERVE_REQUESTS,
+            / n_requests,
             "flash_launches_per_prefill_expected": per_prefill,
             "nvidia_smi_clocks_power": smi,
             "decode_window": decode_window, "prefill_window": prefill_window,
-            "consistency": consistency}
+            "consistency": consistency, "check": checked}
     emit(line)
     del params, inputs
     _free(torch)
     if not consistency["within_limit"]:
         raise SystemExit(f"{phase}: decode logits disagree with teacher "
                          "forcing at full width")
+    if checked is not None and not checked["ok"]:
+        raise SystemExit(f"{phase}: its check failed: {checked}")
     return line
 
 
@@ -2885,12 +3175,83 @@ def phase_whisper_serve_main(torch, np, dev) -> dict:
 
 
 def phase_internvl_serve_main(torch, np, dev) -> dict:
-    """InternVL2-26B at its published widths and full depth (48 layers,
-    GQA 48/8) behind the engine, one set of 1024 patches for every
-    request: 48 flash launches a prefill."""
+    """InternVL2-26B at its published widths cut to ``SERVE_CUT_LAYERS``
+    of its 48 layers (GQA 48/8) behind the engine, one set of 1024
+    patches for every request: one flash launch a layer a prefill."""
     return _serve_cell(torch, np, dev, "internvl_serve_main",
                        "internvl2-26b", INTERNVL_PROMPT, SERVE_CACHE,
-                       INTERNVL_PREFILL_TIMED, INTERNVL_TF_PROMPT)
+                       INTERNVL_PREFILL_TIMED, INTERNVL_TF_PROMPT,
+                       overrides={"num_layers": SERVE_CUT_LAYERS[
+                           "internvl2-26b"]})
+
+
+SOFTCAP_GOLDEN = ROOT / "tests" / "data" / "torch_softcap_serve_golden" / \
+    "expected.npz"
+# The soft-capped Whisper cell: 4 requests (not 16) to fit the script's
+# time limit, and the prompt of the cap's check.
+SOFTCAP_REQUESTS = 4
+SOFTCAP_CHECK_PROMPT = 64
+
+
+def phase_softcap_golden(torch, np, dev) -> dict:
+    """The fixture ``tests/data/torch_softcap_serve_golden`` (the Whisper
+    fixture's float32 twin, 2 + 2 layers at full width, with its
+    attention logits soft-capped at ``golden.SOFTCAP_CAP``): JAX's logits
+    and greedy engine tokens through the capped float32 flash kernel,
+    3 launches a layer a prefill, the capped decode and the capped
+    one-token cross attention."""
+    from repro_torch.serve import golden
+    return _serve_golden(torch, np, dev, "softcap_golden", golden.SOFTCAP,
+                         SOFTCAP_GOLDEN)
+
+
+def _cap_moves_logits(torch, tf, cap_cfg, uncapped_cfg):
+    """A check for :func:`_serve_cell`: one prefill of a random
+    ``SOFTCAP_CHECK_PROMPT``-token prompt with the cap and without it on
+    the same weights; the cap must change the logits.  A run check only:
+    random weights leave attention near uniform, so the cap moves these
+    logits by about one bf16 step, far inside the teacher-forcing
+    limit, and neither gate can tell a capped run from an uncapped one.
+    What holds the cap at full width is phase 34's float32 fixture."""
+    def check(params, cfg, inputs, rng):
+        tokens = torch.as_tensor(
+            rng.integers(0, cfg.vocab_size, SOFTCAP_CHECK_PROMPT),
+            dtype=torch.int64, device=params["embed"].device)[None]
+        got = {key: tf.prefill(params, {"tokens": tokens, **inputs}, c,
+                               SERVE_CACHE)[0].float()
+               for key, c in (("capped", cap_cfg), ("uncapped", uncapped_cfg))}
+        diff = float((got["capped"] - got["uncapped"]).abs().max())
+        return {"prompt_tokens": SOFTCAP_CHECK_PROMPT,
+                "max_abs_logit_diff": diff,
+                "max_abs_logit": float(got["uncapped"].abs().max()),
+                "argmax_equal": bool(torch.equal(
+                    got["capped"].argmax(-1), got["uncapped"].argmax(-1))),
+                "ok": diff > 0}
+    return check
+
+
+def phase_softcap_serve_main(torch, np, dev) -> dict:
+    """Whisper-medium at its published widths and full depth (24 encoder
+    + 24 decoder layers, bf16 weights from seed 0) with its attention
+    logits soft-capped at ``golden.SOFTCAP_CAP`` (the cap chosen against
+    the float32 fixture's logits) behind the engine: 4 requests, 72
+    capped flash launches a prefill (encoder, causal decoder, cross
+    attention), the capped decode self and cross attention, decode
+    against teacher forcing, and a prefill whose logits the cap must
+    change.  It shows that the capped path runs at full width and depth;
+    it does not hold the cap (see :func:`_cap_moves_logits`): phase 34
+    does."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import golden
+    overrides = {"attn_logit_softcap": golden.SOFTCAP_CAP}
+    base = get_config("whisper-medium")
+    return _serve_cell(
+        torch, np, dev, "softcap_serve_main", "whisper-medium",
+        WHISPER_PROMPT, WHISPER_CACHE, WHISPER_PREFILL_TIMED,
+        WHISPER_PROMPT[1], overrides=overrides, n_requests=SOFTCAP_REQUESTS,
+        windows=False, check=_cap_moves_logits(
+            torch, tf, dataclasses.replace(base, **overrides), base))
 
 
 def phase_grad(torch, np, dev) -> dict:
@@ -2922,6 +3283,14 @@ def phase_grad(torch, np, dev) -> dict:
                 lambda: _flash_inputs(torch, np, case, dev),
                 FLASH_TOL[case[8]])
 
+    def capped_flash_check(case):
+        causal, window = case[6:8]
+        kw = dict(causal=causal, window=window, softcap=FLASH_SOFTCAP)
+        return (flash, lambda q, k, v: flash.flash_attention(q, k, v, **kw),
+                lambda q, k, v: flash.flash_attention_plain(q, k, v, **kw),
+                lambda: _capped_inputs(torch, np, case, dev),
+                FLASH_TOL[case[8]])
+
     def mlstm_check(case):
         chunk = case[5]
         return (mlstm, lambda *x: mlstm.mlstm_chunkwise(
@@ -2936,6 +3305,7 @@ def phase_grad(torch, np, dev) -> dict:
         "rglru_scan/train": rglru_check(RGLRU_TRAIN_CASE),
         "flash_attention/serve": flash_check(FLASH_CASES[0]),
         "flash_attention/train": flash_check(FLASH_TRAIN_CASE),
+        "flash_attention/softcap_live": capped_flash_check(FLASH_LIVE_CASE),
         "mlstm_chunkwise/forecast": mlstm_check(MLSTM_CASES[0]),
         "mlstm_chunkwise/forecast_train": mlstm_check(MLSTM_TRAIN_CASE),
         "mlstm_chunkwise/xlstm_serve": mlstm_check(MLSTM_XLSTM_CASE),
@@ -3620,6 +3990,8 @@ def phase_distributed(torch, np, dev, smi: str) -> dict:
 
 
 DRYRUN_PEAK_TOL = 0.10        # estimated peak vs the measured one
+# Phase 29's cell on a fake world of 1, held to the card's step.
+DRYRUN_PHASE29 = (("deepseek-7b", "phase29", False),)
 # Production cells run on fake worlds of 256 and 512 ranks.
 DRYRUN_CELLS = (("deepseek-7b", "train_4k", False),
                 ("deepseek-7b", "decode_32k", False),
@@ -3677,10 +4049,20 @@ def _dryrun_key(cell) -> str:
 
 def start_dryruns(cells) -> dict:
     """Start the dry runs of ``cells`` now, one process each; phase 30
-    collects them.  The 512-rank cell spends about two minutes of host
-    time in DTensor's first sharding propagations on a 3-D mesh, so
-    ``main`` starts it before phase 29, beside that phase's card work."""
-    return {_dryrun_key(c): _dryrun_process(c) for c in cells}
+    collects them, and any still running when the script exits are
+    killed.  They need the host and not the card (6-20 s of tracing
+    each, the 512-rank cell the longest), so ``main`` starts them all
+    before the training phases, whose steps keep the card busy."""
+    procs = {_dryrun_key(c): _dryrun_process(c) for c in cells}
+    atexit.register(_stop_processes, list(procs.values()))
+    return procs
+
+
+def _stop_processes(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def phase_dryrun(torch, np, dev, smi: str, started=None) -> dict:
@@ -3706,10 +4088,9 @@ def phase_dryrun(torch, np, dev, smi: str, started=None) -> dict:
     # the dry runs start first, one process each, and run on the host
     # beside the card's step
     procs = dict(started or {})
-    procs.update(start_dryruns([("deepseek-7b", "phase29", False)] + [
-        c for c in DRYRUN_CELLS if _dryrun_key(c) not in procs]))
-    procs["cell"] = procs.pop(_dryrun_key(("deepseek-7b", "phase29",
-                                           False)))
+    procs.update(start_dryruns([c for c in DRYRUN_PHASE29 + DRYRUN_CELLS
+                                if _dryrun_key(c) not in procs]))
+    procs["cell"] = procs.pop(_dryrun_key(DRYRUN_PHASE29[0]))
     line = {"phase": "dryrun", "nvidia_smi": smi, "arch": "deepseek-7b",
             "layers": DIST_LAYERS, "batch": DIST_BATCH, "seq_len": DIST_SEQ,
             "mesh": [1, 1]}
@@ -3750,10 +4131,7 @@ def phase_dryrun(torch, np, dev, smi: str, started=None) -> dict:
     try:
         runs = {key: _dryrun_result(p) for key, p in procs.items()}
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        _stop_processes(procs.values())
     cell = runs.pop("cell")
     est = cell["memory"]["peak_estimate_bytes"]
     line.update(
@@ -4248,23 +4626,26 @@ def phase_chaos_search_obs(torch, np, dev, orch) -> dict:
 
 
 # Phase 33: the live cluster.  Two torch training jobs on one card under
-# the paper's orchestrator: job A, xLSTM-125M at its published widths and
-# depth, evicted once and resumed from its checkpoint; job B,
-# DeepSeekMoE-16B's widths cut to 2 of its 28 layers (the dense first
-# layer and one MoE layer), never evicted.
+# the paper's orchestrator: job A, xLSTM-125M at its published widths cut
+# to one superblock of its 12 layers (3 mLSTM + 1 sLSTM; the whole depth
+# took 7.5 s a step, host bound in the sLSTM's walk), evicted once and
+# resumed from its checkpoint; job B, DeepSeekMoE-16B's widths cut to 2
+# of its 28 layers (the dense first layer and one MoE layer), never
+# evicted.
 LIVE_SEQ = 512                 # two sLSTM remat chunks; one MoE group
 LIVE_BATCH = 4
 LIVE_STEPS = 4
 LIVE_EVICT_AT = 2              # evict job A once it has finished step 2
+LIVE_XLSTM_LAYERS = 4
 LIVE_MOE_LAYERS = 2
 LIVE_CYCLE_S = 0.1
 LIVE_TIMEOUT_S = 300.0
 # Launches a step, predicted from the step's structure: a superblock's
 # forward runs twice (the step's, and its checkpoint's recompute in the
 # backward, whose own backward differentiates the plain version), so
-# xLSTM-125M's 9 mLSTM blocks launch the parallel mLSTM kernel 18 times
+# the xLSTM cut's 3 mLSTM blocks launch the parallel mLSTM kernel 6 times
 # a step, and the MoE cut's 2 attention layers launch flash 4 times.
-LIVE_MLSTM_PER_STEP = 18
+LIVE_MLSTM_PER_STEP = 6
 LIVE_FLASH_PER_STEP = 4
 # Job B's losses in the live run are held to its solo run's with ``==``,
 # as job A's: the MoE layer's dispatch adds in a fixed order.  Its
@@ -4357,7 +4738,8 @@ def phase_live(torch, np, dev) -> dict:
     from repro_torch.train.optimizer import OptimizerConfig
     from repro_torch.train.trainer import Trainer, TrainerConfig
     t_phase = time.perf_counter()
-    cfgs = {"A": get_config("xlstm-125m"),
+    cfgs = {"A": dataclasses.replace(get_config("xlstm-125m"),
+                                     num_layers=LIVE_XLSTM_LAYERS),
             "B": dataclasses.replace(get_config("deepseek-moe-16b"),
                                      num_layers=LIVE_MOE_LAYERS)}
     tokens = LIVE_BATCH * LIVE_SEQ
@@ -4715,6 +5097,7 @@ def main() -> int:
     phase_serve_golden(torch, np, dev)
     serve_line = phase_serve_main(torch, np, dev)
     phase_grad(torch, np, dev)
+    early = start_dryruns(DRYRUN_PHASE29 + DRYRUN_CELLS)
     t0 = time.perf_counter()
     phase_train_golden(torch, np, dev)
     ft = phase_forecast_train(torch, np, dev, data, forecast_line)
@@ -4740,18 +5123,15 @@ def main() -> int:
     vg = phase_vlm_golden(torch, np, dev)
     vs = phase_internvl_serve_main(torch, np, dev)
     emit({"phase": "modality_phases", "seconds": time.perf_counter() - t0})
-    early = start_dryruns([c for c in DRYRUN_CELLS if c[2]])
-    try:
-        dp = phase_distributed(torch, np, dev, info["nvidia_smi"])
-        dr = phase_dryrun(torch, np, dev, info["nvidia_smi"], early)
-    finally:
-        for p in early.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    dp = phase_distributed(torch, np, dev, info["nvidia_smi"])
+    dr = phase_dryrun(torch, np, dev, info["nvidia_smi"], early)
     orch = phase_orchestrate(torch, np, dev)
     cso = phase_chaos_search_obs(torch, np, dev, orch)
     live = phase_live(torch, np, dev)
+    t0 = time.perf_counter()
+    scg = phase_softcap_golden(torch, np, dev)
+    sc = phase_softcap_serve_main(torch, np, dev)
+    emit({"phase": "softcap_phases", "seconds": time.perf_counter() - t0})
     emit({"kernels": [{
         "name": "lane_program", "route": "cuda",
         "source": "src/repro_torch/manyworld/csrc/lane_program.cu",
@@ -4875,7 +5255,9 @@ def main() -> int:
             "vlm_golden_float32": vg["flash_launches"],
             "sharded_train": dp["sharded_flash_launches"],
             "dryrun_check": dr["flash_launches"],
-            "live_moe": live["live"]["launches"]["flash_attention"]},
+            "live_moe": live["live"]["launches"]["flash_attention"],
+            "softcap_serve": sc["launches"]["flash_attention"],
+            "softcap_golden_float32": scg["flash_launches"]},
         "live_shape": list(FLASH_LIVE_CASE[:6]),
         "live_shape_max_abs_err": fl["cases"][_flash_name(
             FLASH_LIVE_CASE)]["max_abs_err"],
@@ -4885,6 +5267,8 @@ def main() -> int:
         "internvl_shapes": fl["internvl_shapes"],
         "qwen_shape_padded": qw["flash_by_heads"][qw["pad_heads_to"]],
         "qwen_shape_unpadded": qw["flash_by_heads"][qw["num_heads"]],
+        "softcap": {key: fl["softcap"][key] for key in (
+            "softcap", "timed", "max_abs_err_bf16", "max_abs_err_f32")},
         "max_abs_err": fl["max_abs_err"],
         "max_abs_err_train": fl["max_abs_err_train"], "ms": fl["kernel_ms"],
         "plain_ms": fl["plain_ms"], "library_ms": fl["library_ms"],

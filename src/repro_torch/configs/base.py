@@ -27,7 +27,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Tuple
 
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 11)"
+# The message for a block kind that no reference config uses: the port
+# runs every mixer and MLP that a reference config names.
+NOT_PORTED = "in no reference config, so the port does not run it"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -19,6 +19,15 @@
 // Whisper's encoder (T = S = 1500) and its cross attention at prefill
 // (the prompt's T against S = 1500).
 //
+// Logit soft-capping (the reference model's _softcap in _mha and
+// decode_attention, src/repro/models/layers.py:167-176; the Pallas kernel
+// has none): with softcap > 0 each logit y = sm_scale * q.k becomes
+// softcap * tanh(y / softcap), after sm_scale and before the mask, so a
+// hidden logit (masked, or a key zero-filled past S) stays exactly -2^30
+// and never turns into a visible -softcap.  The cap is a template
+// parameter of both kernels' bodies: the kernels without it are the same
+// code as before it existed, and a launch with softcap <= 0 takes them.
+//
 // Bound: at the serving path's shape (B = 1, Hq = 16, Hkv = 1,
 // T = S = 3072, hd = 256, window 2048, bfloat16) the visible (i, j)
 // pairs are 16 * 4,195,328 and each costs 4 * hd operations (q.k and
@@ -70,11 +79,32 @@
 // the Pallas kernel and attention_ref keep P in float32.  l sums the
 // unrounded P, and o is acc times 1 / max(l, 1e-30).
 //
+// Soft-capped (bf16): tanh(y / softcap) is 1 - 2 / (1 + e^(2 y / softcap)),
+// with e^(..) from ex2.approx.ftz on one product of the logit and a
+// folded constant and 1 / (..) from rcp.approx.ftz, and the result times
+// softcap * log2(e) in one FMA: absolute error near 2^-22 of softcap
+// where tanh.approx.f32 (one MUFU op, relative error near 2^-11) would
+// move a logit by softcap * 2^-11, 0.024 at softcap 50, more than the
+// bf16 rounding of P.  It costs two special-function (MUFU) operations a
+// logit (ex2, rcp) beside the softmax's ex2.  The H100 issues about 3.9 T
+// of them a second (FlashAttention-3, arXiv:2407.08608) against 989
+// TFLOP/s of tensor-core work, so at hd 64 one a visible pair already
+// costs as long as its 4 * hd products.  Bound of a capped call: the
+// largest of the tensor-core time, the special-function time of the two
+// operations a pair that the function needs (one tanh, one exponential)
+// and the bytes time: the special-function unit at hd 64, it and the
+// tensor cores alike at hd 128, the tensor cores at hd 256.
+//
 // float32: a SIMT kernel: one block of 256 threads per (batch, query
 // head, block of 32 queries), float32 FMAs on the CUDA cores with IEEE
 // expf, float32 tiles in shared memory.  It carries the float32 checks
 // (atol 2e-5 against the oracle), which TF32 tensor cores could not
-// meet.
+// meet.  Its cap is softcap * tanhf(y * (1 / softcap)) with CUDA's
+// accurate tanhf and 1 / softcap taken on the host.  The capped body
+// runs in a kernel of its own, flash_attention_f32_softcap, with a
+// register budget of one block per SM: under the uncapped kernel's
+// (ptxas keeps it to 80 registers a thread) the capped hd 256 body
+// spilled the row sums.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (repro_torch/_build.py)
@@ -116,12 +146,12 @@ constexpr int64_t smem_bytes() {
 // padded by 4 floats, so the reads are free of bank conflicts), reduce
 // the row max and sum with shuffles, and then own hd / 32 output columns
 // of those rows for p.v, accumulating in registers.
-template <int HD>
-__global__ void __launch_bounds__(kThreads) flash_attention_f32(
+template <int HD, bool CAP>
+__device__ __forceinline__ void attention_f32(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, float* __restrict__ o, int Hq, int Hkv,
     int64_t Tq, int64_t S, int hd, float sm_scale, int causal,
-    int64_t window) {
+    int64_t window, float softcap, float inv_softcap) {
   constexpr int QS = HD + kPad;        // q / k row stride (floats)
   constexpr int PS = kBQ + kPad;       // weight row stride
   constexpr int NC = HD / 32;          // output columns per lane
@@ -206,7 +236,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32(
         bool ok = kj < S;
         if (causal) ok = ok && kj <= qi;
         if (window > 0) ok = ok && kj > qi - window;
-        x[c] = ok ? s[i][c] * sm_scale : kNegInf;
+        float y = s[i][c] * sm_scale;
+        if constexpr (CAP) y = tanhf(y * inv_softcap) * softcap;
+        x[c] = ok ? y : kNegInf;
       }
       float mx = fmaxf(x[0], x[1]);
 #pragma unroll
@@ -259,23 +291,47 @@ __global__ void __launch_bounds__(kThreads) flash_attention_f32(
   }
 }
 
+#define F32_ARGS                                                          \
+  const float *__restrict__ q, const float *__restrict__ k,               \
+      const float *__restrict__ v, float *__restrict__ o, int Hq, int Hkv, \
+      int64_t Tq, int64_t S, int hd, float sm_scale, int causal,           \
+      int64_t window, float softcap, float inv_softcap
+#define F32_PASS \
+  q, k, v, o, Hq, Hkv, Tq, S, hd, sm_scale, causal, window, softcap, inv_softcap
+
 template <int HD>
+__global__ void __launch_bounds__(kThreads) flash_attention_f32(F32_ARGS) {
+  attention_f32<HD, false>(F32_PASS);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_f32_softcap(F32_ARGS) {
+  attention_f32<HD, true>(F32_PASS);
+}
+
+#undef F32_ARGS
+#undef F32_PASS
+
+template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int Hq, int Hkv, int64_t Tq, int64_t S, int hd, float sm_scale,
-           int causal, int64_t window, cudaStream_t stream) {
+           float softcap, int causal, int64_t window, cudaStream_t stream) {
   constexpr int64_t bytes = smem_bytes<HD>();
+  const auto kernel =
+      CAP ? flash_attention_f32_softcap<HD> : flash_attention_f32<HD>;
   // Above 48 KB a block's shared memory must be opted into (per device,
   // so on every launch; the call is cheap beside the kernel).
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_f32<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(static_cast<unsigned>((Tq + kBQ - 1) / kBQ),
                   static_cast<unsigned>(Hq), static_cast<unsigned>(B));
-  flash_attention_f32<HD><<<grid, kThreads, bytes, stream>>>(
+  kernel<<<grid, kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), Hq, Hkv, Tq, S,
-      hd, sm_scale, causal, window);
+      hd, sm_scale, causal, window, softcap, CAP ? 1.f / softcap : 0.f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -393,6 +449,12 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -501,12 +563,15 @@ __device__ __forceinline__ void wgmma_pv(float (&d)[HD / 2],
 // layout a thread (warp wp of its warpgroup, lane) holds, of a 64 x N
 // tile, rows 16 wp + lane / 4 (elements 4 b + 0, 1) and that + 8
 // (elements 4 b + 2, 3), columns 8 b + 2 (lane % 4) + {0, 1}.
-template <int HD>
+// Without CAP a logit s becomes s * scale_log2 (sm_scale * log2 e); with
+// CAP, scale_log2 is 2 sm_scale log2(e) / softcap and cap_log2 is
+// softcap * log2(e): x = cap_log2 (1 - 2 / (1 + 2^(s scale_log2))).
+template <int HD, bool CAP>
 __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
     int Hq, int Hkv, int64_t Tq, int64_t S, int hd, float scale_log2,
-    int causal, int64_t window, int n_qblocks, int vec) {
+    int causal, int64_t window, int n_qblocks, int vec, float cap_log2) {
   constexpr int NO = HD / 2;             // output accumulators a thread
   constexpr uint32_t kTile = kBK * HD * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -599,11 +664,17 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16(
     wgmma_wait_all();
     pin(s);
 
-    // Online softmax in base 2 on the thread's two rows.
+    // Online softmax in base 2 on the thread's two rows; the cap, where
+    // there is one, on every logit of every tile, before the mask.
     float mx[2] = {m[0], m[1]};
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      float x = s[i] * scale_log2;
+      float x;
+      if constexpr (CAP)
+        x = fmaf(rcp(1.f + ex2(s[i] * scale_log2)), -2.f * cap_log2,
+                 cap_log2);
+      else
+        x = s[i] * scale_log2;
       if (edge) {
         const int64_t qi = row + 8 * ((i >> 1) & 1);
         const int64_t kj = kt + 8 * (i >> 2) + col + (i & 1);
@@ -685,14 +756,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_attention_bf16(
   }
 }
 
-template <int HD>
+template <int HD, bool CAP>
 int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
            int Hq, int Hkv, int64_t Tq, int64_t S, int hd, float sm_scale,
-           int causal, int64_t window, cudaStream_t stream) {
+           float softcap, int causal, int64_t window, cudaStream_t stream) {
   constexpr int bytes = smem_bytes<HD>();
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_bf16<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      flash_attention_bf16<HD, CAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t n_qblocks = (Tq + kBQ - 1) / kBQ;
   const int64_t blocks = B * Hq * n_qblocks;
@@ -700,53 +771,64 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t B,
   const int vec = hd % 8 == 0
       && ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k)
            | reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-  flash_attention_bf16<HD><<<static_cast<unsigned>(blocks), kThreads, bytes,
-                             stream>>>(
+  const float scale_log2 =
+      CAP ? 2.f * sm_scale * kLog2e / softcap : sm_scale * kLog2e;
+  flash_attention_bf16<HD, CAP><<<static_cast<unsigned>(blocks), kThreads,
+                                  bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      Hq, Hkv, Tq, S, hd, sm_scale * kLog2e, causal, window,
-      static_cast<int>(n_qblocks), vec);
+      Hq, Hkv, Tq, S, hd, scale_log2, causal, window,
+      static_cast<int>(n_qblocks), vec, softcap * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bf16
 
+template <bool CAP, typename Launch>
+int dispatch_hd(int hd, Launch&& launch) {
+  if (hd <= 64) return launch(std::integral_constant<int, 64>(),
+                              std::bool_constant<CAP>());
+  if (hd <= 128) return launch(std::integral_constant<int, 128>(),
+                               std::bool_constant<CAP>());
+  return launch(std::integral_constant<int, 256>(),
+                std::bool_constant<CAP>());
+}
+
 template <typename Launch>
-int dispatch(int hd, Launch&& launch) {
-  if (hd <= 64) return launch(std::integral_constant<int, 64>());
-  if (hd <= 128) return launch(std::integral_constant<int, 128>());
-  return launch(std::integral_constant<int, 256>());
+int dispatch(int hd, bool cap, Launch&& launch) {
+  return cap ? dispatch_hd<true>(hd, launch) : dispatch_hd<false>(hd, launch);
 }
 
 }  // namespace
 
 // dtype code: 0 float32, 1 bfloat16 (q, k, v and o alike).  causal is 0
-// or 1; window 0 means none.  Launches on `stream`; returns
-// cudaGetLastError() of the launch (cudaErrorInvalidValue for arguments
-// the kernel does not take).
+// or 1; window 0 means none; softcap > 0 caps the logits, any other value
+// means none.  Launches on `stream`; returns cudaGetLastError() of the
+// launch (cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int64_t B,
                                       int Hq, int Hkv, int64_t Tq, int64_t S,
-                                      int hd, float sm_scale, int causal,
-                                      int64_t window, int dtype,
+                                      int hd, float sm_scale, float softcap,
+                                      int causal, int64_t window, int dtype,
                                       void* stream) {
   if (B == 0 || Hq == 0 || Tq == 0) return 0;
   if (hd < 1 || hd > 256 || Hkv < 1 || Hq % Hkv != 0 || S < 1 || B > 65535
       || Hq > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool cap = softcap > 0.f;
   if (dtype == 0)
-    return dispatch(hd, [&](auto HD) {
-      return f32::launch<decltype(HD)::value>(q, k, v, o, B, Hq, Hkv, Tq, S,
-                                              hd, sm_scale, causal, window,
-                                              s);
+    return dispatch(hd, cap, [&](auto HD, auto CAP) {
+      return f32::launch<decltype(HD)::value, decltype(CAP)::value>(
+          q, k, v, o, B, Hq, Hkv, Tq, S, hd, sm_scale, softcap, causal,
+          window, s);
     });
   if (dtype == 1)
-    return dispatch(hd, [&](auto HD) {
-      return bf16::launch<decltype(HD)::value>(q, k, v, o, B, Hq, Hkv, Tq,
-                                               S, hd, sm_scale, causal,
-                                               window, s);
+    return dispatch(hd, cap, [&](auto HD, auto CAP) {
+      return bf16::launch<decltype(HD)::value, decltype(CAP)::value>(
+          q, k, v, o, B, Hq, Hkv, Tq, S, hd, sm_scale, softcap, causal,
+          window, s);
     });
   return static_cast<int>(cudaErrorInvalidValue);
 }

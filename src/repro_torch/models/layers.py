@@ -42,8 +42,11 @@ as the reference does.  The softmax weights of the one-token cross
 attention carry the reference's ``_mha`` constraint in the grouped
 (B, Kv, G, S) layout.
 
-Not ported (raises ``NotImplementedError`` naming ROADMAP Queue 1 item
-11): logit soft-capping.
+With ``cfg.attn_logit_softcap > 0`` every attention caps its float32
+logits to ``cap * tanh(s / cap)`` before the mask, as the reference's
+``_softcap`` does: the flash kernel (prefill, training, the encoder,
+cross attention over a prompt), the one-token decode (after the int8
+cache's key scale) and the one-token cross attention.
 """
 from __future__ import annotations
 
@@ -54,23 +57,17 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import NOT_PORTED, ArchConfig
+from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.sharding import (current_ctx, is_dtensor,
                                               local_call, local_offsets,
                                               local_run, merge_dims, shard,
                                               splittable, unflatten_last)
-from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.flash_attention import (NEG_INF, flash_attention,
+                                                 softcap_logits)
 from repro_torch.models.params import ParamSpec
 
 # The residual stream's logical axes (sequence-parallel over `model`).
 RESIDUAL_AXES = ("act_batch", "act_seq", "act_embed")
-
-
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the attention option the port does not run."""
-    if cfg.attn_logit_softcap > 0:
-        raise NotImplementedError(f"{cfg.name}: attn_logit_softcap is "
-                                  f"{NOT_PORTED}")
 
 
 # --------------------------------------------------------------------------- #
@@ -237,10 +234,12 @@ def _flash_local(q, k, v, **kw):
 
 
 def attention_from_qkv(q, k, v, *, causal: bool = True, window: int = 0,
-                       pad_heads_to: int = 0) -> torch.Tensor:
+                       pad_heads_to: int = 0,
+                       softcap: float = 0.0) -> torch.Tensor:
     """The softmax core over projected (B, T, H, hd) q, k, v: the kernel,
-    with q already scaled (``sm_scale = 1``).  Positions are 0..T-1, the
-    only positions full-sequence attention is called with.
+    with q already scaled (``sm_scale = 1``) and the logits capped at
+    ``softcap`` (none at 0).  Positions are 0..T-1, the only positions
+    full-sequence attention is called with.
 
     With ``pad_heads_to`` above the query heads, k and v are repeated to
     every query head and q, k, v get zero heads up to that count, as the
@@ -276,7 +275,8 @@ def attention_from_qkv(q, k, v, *, causal: bool = True, window: int = 0,
                      (q.transpose(1, 2), k.transpose(1, 2),
                       v.transpose(1, 2)),
                      (local, local_kv, local_kv), local,
-                     causal=causal, window=window, sm_scale=1.0)
+                     causal=causal, window=window, sm_scale=1.0,
+                     softcap=softcap)
     return out.transpose(1, 2)[:, :, :n_heads]
 
 
@@ -285,10 +285,10 @@ def attention(p, x: torch.Tensor, cfg: ArchConfig, *,
               use_rope: bool = True) -> torch.Tensor:
     """Training / prefill attention over a whole sequence at positions
     0..T-1 (the reference's callers pass no other)."""
-    check_ported(cfg)
     q, k, v = _project_qkv(p, x, cfg, positions, use_rope)
     out = attention_from_qkv(q, k, v, causal=causal, window=window,
-                             pad_heads_to=cfg.pad_heads_to)
+                             pad_heads_to=cfg.pad_heads_to,
+                             softcap=cfg.attn_logit_softcap)
     return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES)
 
 
@@ -300,7 +300,6 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
     """(B, Kv, S, hd) k and v, S = min(window, max_len) for a ring buffer,
     and per-example positions (B,).  With ``cfg.kv_quant``, int8 k and v
     and float16 scales (B, Kv, S), whatever ``dtype`` is."""
-    check_ported(cfg)
     size = min(window, max_len) if window > 0 else max_len
     shape = (batch, cfg.num_kv_heads, size, cfg.head_dim_)
     cache = {"pos": torch.zeros((batch,), dtype=torch.int32, device=device)}
@@ -378,8 +377,10 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     Under a sharding context (a cache of DTensors, ``pos`` one scalar for
     a uniform wave or per example) each rank writes the new token into
     its own shard (:func:`write_token`) and attends over it
-    (:func:`_decode_core_local`)."""
-    check_ported(cfg)
+    (:func:`_decode_core_local`).
+
+    With ``cfg.attn_logit_softcap`` the logits are capped after the key
+    scale and before the mask, as the reference's."""
     B, T, _ = x.shape
     if T != 1:
         raise ValueError("decode_attention processes one new token")
@@ -409,28 +410,34 @@ def decode_attention(p, x: torch.Tensor, cfg: ArchConfig, cache: Dict,
     qg = splittable(q, 2, Kv).reshape(B, Kv, G, hd)
     scales = (cache["k_scale"], cache["v_scale"]) if cfg.kv_quant else \
         (None, None)
+    cap = cfg.attn_logit_softcap
     if not sharded:
-        scores = _decode_scores(qg, k, scales[0], pos, window, S)
+        scores = _decode_scores(qg, k, scales[0], pos, window, S,
+                                softcap=cap)
         w = torch.softmax(scores, dim=-1)
         out = _decode_weighted(w, v, scales[1], x.dtype)
     else:
-        out = _decode_core_local(qg, k, v, scales, pos, window, x.dtype)
+        out = _decode_core_local(qg, k, v, scales, pos, window, x.dtype,
+                                 cap)
     out = out.reshape(B, 1, cfg.num_heads, hd)
     pos.add_(1)
     return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES), cache
 
 
 def _decode_scores(qg, k, k_scale, pos, window: int, S: int, s0: int = 0,
-                   rows: Optional[slice] = None) -> torch.Tensor:
+                   rows: Optional[slice] = None,
+                   softcap: float = 0.0) -> torch.Tensor:
     """The masked logits (B, Kv, G, S') of one token's grouped queries
     against cache slots ``s0 .. s0 + S'`` of a cache of ``S`` (a rank's
     part of it, rows ``rows`` of ``pos``), float32.  With ``k_scale``
-    (int8 cache) the logits are ``q . k8`` times the key's scale."""
+    (int8 cache) the logits are ``q . k8`` times the key's scale; then
+    capped at ``softcap`` (none at 0), then masked."""
     if k_scale is not None:
         scores = _dot_f32(qg, k.to(qg.dtype).transpose(-1, -2))
         scores = scores * k_scale.float()[:, :, None, :]
     else:
         scores = torch.einsum("bkgh,bksh->bkgs", qg.float(), k.float())
+    scores = softcap_logits(scores, softcap)
     slot_ids = torch.arange(s0, s0 + k.shape[2], dtype=torch.int32,
                             device=qg.device)
     pb = pos.reshape(-1, 1)                  # (B, 1), or (1, 1) uniform
@@ -456,7 +463,8 @@ def _decode_weighted(w, v, v_scale, dt) -> torch.Tensor:
     return torch.einsum("bkgs,bksh->bkgh", w.to(dt), v)
 
 
-def _decode_core_local(qg, k, v, scales, pos, window: int, dt):
+def _decode_core_local(qg, k, v, scales, pos, window: int, dt,
+                       softcap: float = 0.0):
     """:func:`_decode_scores`, softmax and :func:`_decode_weighted` on
     DTensors: the logits and the weighted sum run on each rank's shard
     of the cache (``local_run``), and where the cache's slots are split
@@ -479,7 +487,7 @@ def _decode_core_local(qg, k, v, scales, pos, window: int, dt):
 
     def scores_fn(q_l, k_l, *ks):
         return _decode_scores(q_l, k_l, ks[0] if ks else None, pos, window,
-                              S, s0, rows)
+                              S, s0, rows, softcap)
     extra = (k_scale,) if k_scale is not None else ()
     scores = local_run(scores_fn, (qg, k) + extra,
                        (q_pl, cache_pl) + (cache_pl,) * len(extra), s_pl)
@@ -579,8 +587,8 @@ def cross_attention(p, x: torch.Tensor, cfg: ArchConfig,
     and discards them).  T > 1 runs the flash kernel with ``causal=False``;
     T = 1 (decode) is the reference's ``_mha`` in plain PyTorch: float32
     logits and softmax, the weights rounded to the activation dtype, the
-    weighted sum over v in that dtype."""
-    check_ported(cfg)
+    weighted sum over v in that dtype.  Both cap the logits at
+    ``cfg.attn_logit_softcap`` before the softmax."""
     dt = x.dtype
     B, T, _ = x.shape
     q = _project(x, p["w_q"])
@@ -589,24 +597,28 @@ def cross_attention(p, x: torch.Tensor, cfg: ArchConfig,
     q = q * (cfg.head_dim_ ** -0.5)
     k, v = (t.to(dt) for t in enc_kv)
     if T > 1:
-        out = attention_from_qkv(q, k, v, causal=False)
+        out = attention_from_qkv(q, k, v, causal=False,
+                                 softcap=cfg.attn_logit_softcap)
     else:
         Kv, G, hd = cfg.num_kv_heads, cfg.q_per_kv, cfg.head_dim_
         qg = splittable(q, 2, Kv).reshape(B, Kv, G, hd)
         grouped = ("act_batch", "act_kv_heads", None, None)
         enc = ("act_batch", None, "act_kv_heads", None)
         out = local_call(_cross_decode, (qg, k, v), (grouped, enc, enc),
-                         grouped, dt=dt).reshape(B, 1, cfg.num_heads, hd)
+                         grouped, dt=dt, softcap=cfg.attn_logit_softcap
+                         ).reshape(B, 1, cfg.num_heads, hd)
     return shard(_out_proj(out, p["w_o"]), RESIDUAL_AXES)
 
 
-def _cross_decode(qg, k, v, dt):
+def _cross_decode(qg, k, v, dt, softcap: float = 0.0):
     """One token's grouped queries (B, Kv, G, hd) against the encoder's
-    k, v (B, S, Kv, hd): float32 logits and softmax, the weights rounded
-    to ``dt``.  Under a sharding context it runs on each rank's batch
-    rows and kv heads (``local_call``), where the weights carry the
-    reference's (act_batch, act_kv_heads) constraint."""
-    scores = torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float())
+    k, v (B, S, Kv, hd): float32 logits capped at ``softcap`` (none at
+    0) and softmax, the weights rounded to ``dt``.  Under a sharding
+    context it runs on each rank's batch rows and kv heads
+    (``local_call``), where the weights carry the reference's
+    (act_batch, act_kv_heads) constraint."""
+    scores = softcap_logits(
+        torch.einsum("bkgh,bskh->bkgs", qg.float(), k.float()), softcap)
     w = torch.softmax(scores, dim=-1).to(dt)
     return torch.einsum("bkgs,bskh->bkgh", w, v)
 

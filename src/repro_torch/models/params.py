@@ -35,6 +35,8 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import queue
+import threading
 from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
@@ -200,14 +202,21 @@ def _numpy_leaf(spec: ParamSpec, rng: np.random.Generator,
     """The leaf's next ``out.size`` values as float32, drawn into the
     float64 ``out`` (a whole leaf, or a piece of it: a run of one draw
     taken in pieces gives the same numbers)."""
+    if spec.init == "normal":
+        rng.standard_normal(out=out)
+    return _scaled_leaf(spec, out)
+
+
+def _scaled_leaf(spec: ParamSpec, out: np.ndarray) -> np.ndarray:
+    """The float32 values of a leaf (or a piece of it) whose standard
+    normals, for a normal leaf, were drawn into the float64 ``out``,
+    which this scales in place."""
     if spec.init == "zeros":
         return np.zeros(out.shape, np.float32)
     if spec.init == "ones":
         return np.ones(out.shape, np.float32)
     if spec.init == "normal":
-        std = spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
-        rng.standard_normal(out=out)
-        out *= std
+        out *= spec.scale / math.sqrt(max(_fan_in(spec.shape), 1))
         return out.astype(np.float32)
     raise ValueError(f"init {spec.init!r} has no numpy draw")
 
@@ -232,22 +241,58 @@ def numpy_params_on(specs, seed: int, device=None,
     """(parameters, digest): the tensors of ``numpy_params(specs, seed)``
     on ``device`` (``None`` is the card), each leaf in ``dtype``, and
     their :func:`tree_digest`, drawn ``_DRAW_PIECE`` values at a time, so
-    the float32 numpy tree never exists (4 GB for 10^9 parameters)."""
+    the float32 numpy tree never exists (4 GB for 10^9 parameters).
+
+    A thread of its own draws the standard normals a piece ahead, into
+    one of two buffers, while this one scales, hashes and copies the
+    piece before (numpy's draw releases the GIL): the two halves take
+    about as long, and overlap."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
+    leaves = list(leaves_with_paths(specs))
+    pieces = [(spec, min(_DRAW_PIECE, n - lo)) for _, spec in leaves
+              for n in (math.prod(spec.shape),)
+              for lo in range(0, n, _DRAW_PIECE)]
+    free, drawn = queue.Queue(), queue.Queue()
+    for _ in range(2):
+        free.put(np.empty(_DRAW_PIECE))
+    stop = threading.Event()
+
+    def draw():
+        try:
+            for spec, size in pieces:
+                buf = free.get()
+                if stop.is_set():
+                    return
+                if spec.init == "normal":
+                    rng.standard_normal(out=buf[:size])
+                drawn.put(buf)
+        except Exception as exc:             # raised again by the caller
+            drawn.put(exc)
+
+    drawer = threading.Thread(target=draw, daemon=True)
+    drawer.start()
     h = hashlib.sha256()
     flat = {}
-    scratch = np.empty(_DRAW_PIECE)
-    for path, spec in leaves_with_paths(specs):
-        _digest_head(h, path, spec.shape, np.dtype(np.float32))
-        leaf = torch.empty(spec.shape, dtype=_leaf_dtype(dtype, path),
-                           device=dev)
-        n = math.prod(spec.shape)
-        for lo in range(0, n, _DRAW_PIECE):
-            a = _numpy_leaf(spec, rng, scratch[:min(_DRAW_PIECE, n - lo)])
-            h.update(memoryview(a))
-            leaf.view(-1)[lo:lo + a.size] = torch.from_numpy(a)
-        flat[path] = leaf
+    try:
+        for path, spec in leaves:
+            _digest_head(h, path, spec.shape, np.dtype(np.float32))
+            leaf = torch.empty(spec.shape, dtype=_leaf_dtype(dtype, path),
+                               device=dev)
+            n = math.prod(spec.shape)
+            for lo in range(0, n, _DRAW_PIECE):
+                buf = drawn.get()
+                if isinstance(buf, BaseException):
+                    raise buf
+                a = _scaled_leaf(spec, buf[:min(_DRAW_PIECE, n - lo)])
+                free.put(buf)
+                h.update(memoryview(a))
+                leaf.view(-1)[lo:lo + a.size] = torch.from_numpy(a)
+            flat[path] = leaf
+    finally:
+        stop.set()
+        free.put(None)
+        drawer.join()
     return map_tree(lambda path, _: flat[path], specs), h.hexdigest()
 
 

@@ -378,7 +378,8 @@ def _attention_prefill(blk: BlockSpec, p, h, cfg: ArchConfig, positions,
             state[name][:, :, :S] = val
     state["pos"].fill_(S)
     out = layers.attention_from_qkv(q, k, v, causal=True, window=window,
-                                    pad_heads_to=cfg.pad_heads_to)
+                                    pad_heads_to=cfg.pad_heads_to,
+                                    softcap=cfg.attn_logit_softcap)
     return layers._out_proj(out, p["w_o"]), state
 
 

@@ -19,6 +19,9 @@
   1024, 16 heads of 64, d_ff 4096, LayerNorm, GeLU, biases, tied
   embeddings, sinusoidal positions) cut to 2 encoder + 2 decoder layers,
   the encoder over all 1500 frames, a 64-token prefill;
+* ``tests/data/torch_softcap_serve_golden/expected.npz``
+  (:data:`SOFTCAP`): the Whisper fixture's model, parameters, frames and
+  tokens with the attention logits soft-capped at :data:`SOFTCAP_CAP`;
 * ``tests/data/torch_vlm_serve_golden/expected.npz`` (:data:`VLM`): a
   float32 twin at InternVL2-26B's widths (d_model 6144, 48 query heads
   over 8 kv heads of 128, d_ff 16384) cut to 2 layers, its vision prefix
@@ -36,8 +39,8 @@ clock; the MoE fixture also holds JAX's chosen experts in each MoE layer
 of the prefill and the decode steps.
 
 ``tests/test_torch_xlstm.py``, ``tests/test_torch_moe.py``,
-``tests/test_torch_dense.py``, ``tests/test_torch_whisper.py`` and
-``tests/test_torch_vlm.py`` build them with the JAX package from these
+``tests/test_torch_dense.py``, ``tests/test_torch_whisper.py``,
+``tests/test_torch_softcap.py`` and ``tests/test_torch_vlm.py`` build them with the JAX package from these
 helpers; the CPU tests, the card tests and ``chip_smoke.py`` replay them
 through :func:`replay` and compare with :data:`TOL`.  The MoE fixture's
 callers read the port's chosen experts by wrapping ``moe.route`` around
@@ -97,6 +100,15 @@ WHISPER = Fixture("whisper-medium", layers=2, prefill=64, decode=8,
                   requests=((12, 5, 0.0), (64, 4, 0.0), (7, 6, 1.0)),
                   slots=2, cache_len=80,
                   overrides=(("encoder_layers", 2),))
+# The cap at the scale of the fixture's own attention logits: with its
+# random float32 weights and frames every logit lies within 0.19 of 0
+# (rms 0.03), so a cap of 0.05 bends them and moves JAX's output logits
+# by ~20x TOL from the Whisper fixture's, where a cap of 50 would leave
+# them as they are.
+SOFTCAP_CAP = 0.05
+SOFTCAP = dataclasses.replace(
+    WHISPER, overrides=WHISPER.overrides + (("attn_logit_softcap",
+                                             SOFTCAP_CAP),))
 VLM = Fixture("internvl2-26b", layers=2, prefill=32, decode=8,
               requests=((12, 5, 0.0), (32, 4, 0.0), (7, 6, 1.0)),
               slots=2, cache_len=304,

@@ -14,6 +14,7 @@ kernel's arithmetic (weights rounded to bf16 for p.v) is held to the
 oracle and the Pallas kernel at the bfloat16 tolerance.
 """
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -105,18 +106,28 @@ def test_plain_matches_oracle_at_ragged_shapes(case):
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
 
 
-def _bf16_kernel_emulation(q, k, v, *, causal, window, block_k=64):
+def _bf16_kernel_emulation(q, k, v, *, causal, window, block_k=64,
+                           softcap=0.0):
     """The bfloat16 CUDA kernel's arithmetic in plain PyTorch (float32):
     per tile of 64 keys, logits from the bf16 q and k scaled by
     ``sm_scale * log2(e)`` (one float32 product, as the kernel forms
     it), hidden logits at -2**30, a base-2 online softmax with float32
     running max and sum, the weights rounded to bf16 after the running
     max for p.v (float32 sums), l over the unrounded weights, and
-    ``o = acc / max(l, 1e-30)`` in q's dtype."""
+    ``o = acc / max(l, 1e-30)`` in q's dtype.  With ``softcap > 0`` the
+    logits are capped as the kernel caps them, on every tile before the
+    mask: ``cap_log2 * (1 - 2 / (1 + 2^(s * c)))`` with the float32
+    constants ``c = 2 sm_scale log2(e) / softcap`` and ``cap_log2 =
+    softcap log2(e)``, which is ``log2(e) softcap tanh(sm_scale s /
+    softcap)``."""
     B, Hq, T, hd = q.shape
     _, Hkv, S, _ = k.shape
-    c = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(
-        np.log2(np.e), dtype=torch.float32)
+    f32 = functools.partial(torch.tensor, dtype=torch.float32)
+    log2e = f32(np.log2(np.e))
+    c = f32(hd ** -0.5) * log2e
+    if softcap > 0:
+        c = f32(2.0) * f32(hd ** -0.5) * log2e / f32(softcap)
+        cap_log2 = f32(softcap) * log2e
     qf = q.float().reshape(B, Hkv, Hq // Hkv, T, hd)
     kf, vf = k.float()[:, :, None], v.float()[:, :, None]
     mask = port_flash._mask(T, S, causal, window, q.device)
@@ -125,6 +136,8 @@ def _bf16_kernel_emulation(q, k, v, *, causal, window, block_k=64):
     acc = torch.zeros_like(qf)
     for kt in range(0, S, block_k):
         x = (qf @ kf[..., kt:kt + block_k, :].transpose(-1, -2)) * c
+        if softcap > 0:
+            x = cap_log2 - 2 * cap_log2 / (1 + torch.exp2(x))
         x = x.masked_fill(~mask[:, kt:kt + block_k], port_flash.NEG_INF)
         m_new = torch.maximum(m, x.amax(-1))
         alpha = torch.exp2(m - m_new)
@@ -211,15 +224,6 @@ def test_attention_layer_matches_jax_bfloat16():
     assert got.dtype == torch.bfloat16
     scale = float(np.abs(want).max())
     np.testing.assert_allclose(_f32(got), want, atol=2e-2 * scale, rtol=0)
-
-
-@pytest.mark.parametrize("field,value", [("attn_logit_softcap", 30.0)])
-def test_unported_attention_options_raise(field, value):
-    _, cfg, _, p, x, pos = _attn_setup("float32")
-    cfg = dataclasses.replace(cfg, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_layers.attention(p, torch.from_numpy(x), cfg,
-                              positions=torch.from_numpy(pos.copy()))
 
 
 @pytest.mark.parametrize("window", [0, 8])

@@ -699,6 +699,75 @@ def test_flash_gradients_on_cuda_match_plain(cuda, case):
                  _flash_inputs(case, cuda), FLASH_TOL[case[8]])
 
 
+# (B, Hq, Hkv, T, S, hd, causal, window, dtype): the capped kernels at
+# each head dim, with their masks' edges: a window edge inside a tile, T
+# and S not multiples of the 128-query block or the 64-key tile (keys
+# zero-filled past S must stay hidden under the cap), GQA and MQA, no
+# mask with T != S; one float32 case per head dim.
+SOFTCAP_CASES = (
+    (1, 4, 1, 384, 384, 256, True, 100, "bfloat16"),
+    (1, 8, 2, 300, 300, 128, True, 0, "bfloat16"),
+    (1, 4, 4, 200, 200, 128, False, 0, "bfloat16"),
+    (1, 4, 4, 77, 1500, 64, False, 0, "bfloat16"),
+    (2, 3, 1, 130, 130, 64, True, 50, "bfloat16"),
+    (1, 2, 1, 50, 90, 32, False, 20, "bfloat16"),
+    (1, 2, 1, 100, 100, 256, True, 0, "float32"),
+    (1, 4, 2, 70, 70, 128, True, 16, "float32"),
+    (1, 2, 2, 40, 90, 64, False, 0, "float32"),
+)
+SOFTCAP = 2.0
+
+
+def _capped_inputs(case, device):
+    """q at 3x unit scale (logits ~N(0, 9), bent hard by a cap of 2)."""
+    q, k, v = _flash_inputs(case, device)
+    return (3 * q).contiguous(), k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", SOFTCAP_CASES)
+def test_capped_flash_kernel_matches_plain_on_cuda(cuda, case):
+    """A CUDA call with a cap launches the capped kernel (one launch) and
+    agrees with the plain version with the cap at the flash tolerance
+    (bf16 also at that tolerance scaled to each row), where the uncapped
+    plain version is 10x that tolerance away."""
+    q, k, v = _capped_inputs(case, cuda)
+    causal, window, dtype = case[6:]
+    before = flash.launches
+    out = flash.flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=SOFTCAP)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    want = flash.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                       softcap=SOFTCAP)
+    unc = flash.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert out.dtype == want.dtype == q.dtype
+    assert float((want.float() - unc.float()).abs().max()) >= \
+        10 * FLASH_TOL[dtype]["atol"]
+    torch.testing.assert_close(out.float(), want.float(), **FLASH_TOL[dtype])
+    if dtype == "bfloat16":
+        # A capped softmax spreads over many keys, so its rows lie far
+        # below unit scale: hold each query row also at the tolerance
+        # scaled to its rms, which a capped logit off by 3 % fails.
+        rms = want.float().pow(2).mean(-1, keepdim=True).sqrt()
+        torch.testing.assert_close(out.float() / rms, want.float() / rms,
+                                   **FLASH_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [SOFTCAP_CASES[1], SOFTCAP_CASES[7]])
+def test_capped_flash_gradients_on_cuda_match_plain(cuda, case):
+    causal, window = case[6], case[7]
+    _check_grads(flash,
+                 lambda q, k, v: (flash.flash_attention(
+                     q, k, v, causal=causal, window=window,
+                     softcap=SOFTCAP),),
+                 lambda q, k, v: (flash.flash_attention_plain(
+                     q, k, v, causal=causal, window=window,
+                     softcap=SOFTCAP),),
+                 _capped_inputs(case, cuda), FLASH_TOL[case[8]])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", [
     (64, 2, 16, 32, 32, 64, "float32", False),
@@ -1101,16 +1170,17 @@ def test_piecewise_draw_peak_memory_on_cuda(cuda, monkeypatch):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", ["WHISPER", "VLM"])
+@pytest.mark.parametrize("name", ["WHISPER", "VLM", "SOFTCAP"])
 def test_modality_golden_fixture_on_cuda(cuda, name):
-    """The float32 Whisper-medium twin (2 + 2 layers, 1500 frames) and
-    InternVL2-26B twin (2 layers, 256 patches) of
-    ``tests/data/torch_{whisper,vlm}_serve_golden`` on the card: JAX's
-    logits within ``golden.TOL`` and its greedy engine tokens, stamps and
-    metrics exactly, flash launched for every full-sequence attention of
-    every prefill (Whisper: the encoder's, the decoder's and the cross
-    attention's; tests/test_torch_whisper.py and test_torch_vlm.py make
-    the fixtures)."""
+    """The float32 Whisper-medium twin (2 + 2 layers, 1500 frames),
+    InternVL2-26B twin (2 layers, 256 patches) and the Whisper twin with
+    soft-capped logits of ``tests/data/torch_{whisper,vlm,softcap}_serve_
+    golden`` on the card: JAX's logits within ``golden.TOL`` and its
+    greedy engine tokens, stamps and metrics exactly, flash launched for
+    every full-sequence attention of every prefill (Whisper: the
+    encoder's, the decoder's and the cross attention's;
+    tests/test_torch_whisper.py, test_torch_vlm.py and
+    test_torch_softcap.py make the fixtures)."""
     from repro_torch.serve import golden
     fixture = getattr(golden, name)
     path = Path(__file__).resolve().parent / "data" / \
@@ -1120,7 +1190,7 @@ def test_modality_golden_fixture_on_cuda(cuda, name):
     before = flash.launches
     report = golden.replay(fixture, fx, cuda)
     assert report["ok"], report
-    per_prefill = fixture.layers * (3 if name == "WHISPER" else 1)
+    per_prefill = fixture.layers * (1 if name == "VLM" else 3)
     prefills = 1 + len(fixture.requests)
     assert flash.launches - before == per_prefill * prefills
 

@@ -143,6 +143,20 @@ def test_numpy_params_on_draws_numpy_params_and_its_digest(monkeypatch,
         assert g.shape == w.shape and np.array_equal(g.numpy(), w), path
 
 
+def test_numpy_params_on_raises_and_ends_its_drawing_thread(monkeypatch):
+    """A leaf with no numpy draw raises in the caller, after the pieces
+    before it, and the thread that draws ahead ends with the call."""
+    import threading
+    monkeypatch.setattr(port_params, "_DRAW_PIECE", 1000)
+    specs = {"a": port_params.ParamSpec((3000,), (None,)),
+             "b": port_params.ParamSpec((2500,), (None,), init="bogus"),
+             "c": port_params.ParamSpec((4000,), (None,))}
+    before = threading.active_count()
+    with pytest.raises(ValueError, match="bogus"):
+        port_params.numpy_params_on(specs, 0, "cpu")
+    assert threading.active_count() == before
+
+
 def test_deepseek_moe_plan_and_widths():
     cfg = get_config("deepseek-moe-16b")
     dense, moe_seg = cfg.layer_plan()

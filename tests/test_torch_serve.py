@@ -396,9 +396,6 @@ def test_entry_points_default_to_the_card_and_unported_raise():
             port_engine.ServeEngine(cfg, params, port_engine.EngineConfig())
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-arch")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_tf.init_decode_state(dataclasses.replace(
-            cfg, attn_logit_softcap=30.0), 1, 8, device="cpu")
 
 
 if __name__ == "__main__":

@@ -132,8 +132,8 @@ def test_plan_without_slstm_and_unported_plans_raise():
                                          is_encoder_decoder=True).layer_plan()
         assert enc_dec.repeats == 6 and enc_dec.blocks == (
             BlockSpec("attn", "dense", cross_attn=True),)
-    # a mixer the port does not run still raises naming the roadmap item
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # a mixer that no reference config uses still raises, saying so
+    with pytest.raises(NotImplementedError, match="no reference config"):
         port_tf._block_specs(BlockSpec("cross_attn", "dense"), cfg)
 
 
